@@ -3,7 +3,7 @@
 //
 // This is the framework's counterpart of the reference's C++ dump-format
 // consumers (decks/trecon-reader/vpic-reader.cxx, interfaces/c/*): the
-// compute path stays JAX/XLA on the TPU, while heavy host-side I/O
+// compute path stays JAX/XLA on the accelerator, while heavy host-side I/O
 // post-processing (joining per-rank bricks into a global volume, bulk
 // particle reads) runs natively.  Built as both a shared library (ctypes
 // bindings in vpic_tpu/io/native.py) and a standalone CLI (vpic_dump).

@@ -12,16 +12,20 @@ Transcribed (independently, in float64, loop form) from:
                        decay=drive=rmu=1
 - accumulate_rho_p   : src/species_advance/standard/rho_p.c:24-79
 
-Everything is periodic, single domain, vacuum.  Arrays are [z,y,x] with one
+Everything is periodic (optionally with reflecting particle walls on x),
+single domain, vacuum.  Arrays are [z,y,x] with one
 ghost layer; voxel index i = x + (nx+2)*(y + (ny+2)*z).
 """
 
 import numpy as np
 
 
+REFLECT = -1   # neighbor code of a reflecting particle boundary
+
+
 class G:
     def __init__(self, nx, ny, nz, lx=1.0, ly=1.0, lz=1.0, dt=0.05,
-                 cvac=1.0, eps0=1.0, damp=0.0):
+                 cvac=1.0, eps0=1.0, damp=0.0, reflect_x=False):
         self.nx, self.ny, self.nz = nx, ny, nz
         self.dt, self.cvac, self.eps0, self.damp = dt, cvac, eps0, damp
         self.dx, self.dy, self.dz = lx / nx, ly / ny, lz / nz
@@ -29,6 +33,13 @@ class G:
         self.nxg, self.nyg, self.nzg = nx + 2, ny + 2, nz + 2
         self.nv = self.nxg * self.nyg * self.nzg
         self.neighbor = self._periodic_neighbors()
+        if reflect_x:
+            # reflecting particle walls on both x faces (set_pbc with
+            # reflect_particles, grid/ops.c)
+            for z in range(1, nz + 1):
+                for y in range(1, ny + 1):
+                    self.neighbor[self.voxel(1, y, z), 0] = REFLECT
+                    self.neighbor[self.voxel(nx, y, z), 3] = REFLECT
 
     def voxel(self, x, y, z):
         return x + self.nxg * (y + self.nyg * z)
@@ -113,8 +124,9 @@ def _accumulate_j(a, i, q, sd, sm):
 
 
 def move_p(pos, i, disp, u, q, a, g, max_iter=64):
-    """Returns (pos, i, disp, u, status): status 0 done, 1 stuck at
-    non-local boundary (never happens with periodic tables)."""
+    """Returns (pos, i, disp, u, status): status 0 done, 1 stuck at a
+    non-local, non-reflecting boundary (never happens with the tables
+    built by G)."""
     for _ in range(max_iter):
         sdir = np.where(np.asarray(disp) > 0, 1.0, -1.0)
         frac = [
@@ -135,6 +147,14 @@ def move_p(pos, i, disp, u, q, a, g, max_iter=64):
         v0 = sdir[typ]
         face = typ + (3 if v0 > 0 else 0)
         nb = g.neighbor[i, face]
+        if nb == REFLECT:
+            # move_p.c: land exactly on the face, flip the momentum and
+            # the remaining displacement along the axis, keep walking
+            pos[typ] = v0
+            u = list(u)
+            u[typ] = -u[typ]
+            disp[typ] = -disp[typ]
+            continue
         if nb < 0 or nb >= g.nv:
             pos[typ] = v0
             return pos, i, disp, u, 1
@@ -188,6 +208,7 @@ def advance_p(p, q_m, ip, a, g):
                 [ux, uy, uz], p["q"][k], a, g)
             assert status == 0
             p["dx"][k], p["dy"][k], p["dz"][k] = pos
+            p["ux"][k], p["uy"][k], p["uz"][k] = u
             p["i"][k] = i2
 
 

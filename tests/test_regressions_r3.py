@@ -203,10 +203,10 @@ def test_sigma_deck_relativistic_walls(monkeypatch):
 
 
 def test_per_species_sort_cadence_dispatch():
-    """advance() must dispatch the per-species sort-cadence pattern
-    correctly: an A cycle (all species sort) every cycle_mult resort
-    cycles, B cycles between (scanned in runs), and exact step
-    accounting across misaligned remainders."""
+    """advance() folds whole cycles into one scanned dispatch, runs the
+    remainder as single steps with exact step accounting, and each
+    species still sorts on its own sort_interval inside the folded
+    dispatch (the ion of this deck every 8 steps, the electron never)."""
     import sys
     sys.path.insert(0, ".")
     from __graft_entry__ import _build
@@ -214,6 +214,7 @@ def test_per_species_sort_cadence_dispatch():
     sim = _build(nx=8, ny=8, nz=1, npart=256)
     k = sim.opts.resort_interval
     assert k == 2
+    assert [sp.sort_interval for sp in sim.state.species] == [0, 8]
     calls = []
 
     def rec(tag):
@@ -222,33 +223,49 @@ def test_per_species_sort_cadence_dispatch():
             return state
         return fn
 
-    sim._cycle_mult = 4
-    sim._advance_cycle = rec("A")
-    sim._advance_cycle_b = rec("B")
-    sim._cycles_scan = lambda m: rec(f"SA{m}")
-    sim._cycles_scan_b = lambda m: rec(f"SB{m}")
-    sim._supercycles_scan = lambda s: rec(f"SC{s}")
+    real_scan = sim._cycles_scan
+    sim._advance_cycle = rec("C")
+    sim._cycles_scan = lambda m: rec(f"S{m}")
     sim._advance_fn = rec("s")
-    sim._advance_fn_nosort = rec("n")
 
     sim.step_count = 0
-    sim.advance(24)          # 3 whole super-cycles: ONE dispatch
-    assert calls == ["SC3"]
+    sim.advance(24)          # 12 whole cycles: ONE dispatch
+    assert calls == ["S12"]
     assert sim.step_count == 24
 
     calls.clear()
-    sim.step_count = 0
-    sim.advance(28)          # 3 super-cycles + A + single B
-    assert calls == ["SC3", "A", "B"]
+    sim.advance(3)           # one cycle + one single step
+    assert calls == ["C", "s"]
+    assert sim.step_count == 27
+
+    calls.clear()
+    sim.advance(1)
+    assert calls == ["s"]
     assert sim.step_count == 28
 
-    calls.clear()
-    sim.step_count = 0
-    sim.advance(5)           # A(2) + B(2) + one aligned single step
-    assert calls == ["A", "B", "s"]
-    assert sim.step_count == 5
+    # the real scanned dispatch over steps 1..8: the ion (sort_interval
+    # 8) is sorted at the start of step 8, so only that step's few cell
+    # crossers break its voxel order; the electron (sort_interval 0)
+    # keeps the shuffled order it was given
+    import jax.numpy as jnp
 
-    calls.clear()
-    sim.advance(5)           # nosort single to align, B, then A boundary
-    assert calls == ["n", "B", "A"]
-    assert sim.step_count == 10
+    rng = np.random.default_rng(0)
+    st = sim.state
+    species = []
+    for sp in st.species:
+        n = int(sp.np)
+        perm = jnp.asarray(np.concatenate([rng.permutation(n),
+                                           np.arange(n, sp.max_np)]))
+        species.append(sp.replace(**{c: getattr(sp, c)[perm] for c in (
+            "dx", "dy", "dz", "i", "ux", "uy", "uz", "q", "tag")}))
+    st = dataclasses.replace(st, species=tuple(species),
+                             step=jnp.asarray(1, st.step.dtype))
+    out = real_scan(4)(st)
+
+    def descents(sp):
+        i = np.asarray(sp.i)[:int(sp.np)]
+        return float(np.mean(np.diff(i) < 0))
+
+    e, ion = out.species
+    assert descents(ion) < 0.1
+    assert descents(e) > 0.3

@@ -1,7 +1,7 @@
 """Same-deck energy-drift comparison against the NumPy f64 reference
 transcription (tests/ref/ref_impl.py) — splits fp32 physics drift from
-bugs (VERDICT r4 item 8; BASELINE's 1e-6 drift bar is defined against
-the reference scalar CPU build).
+bugs (BASELINE's 1e-6 drift bar is defined against the reference scalar
+CPU build).
 
 The bench-class deck (two species, force-free sheet, periodic vacuum)
 is built once via __graft_entry__._build; its EXACT post-finalize state
@@ -18,7 +18,8 @@ mirror), so the printed numbers are directly comparable:
   field_rms  = relative RMS difference of cb/e components after N steps
 
 Usage: python tools/drift_compare.py [steps] [npart_total] [nx]
-Appends one JSON line to EVIDENCE.jsonl (kind=drift_compare).
+Prints one JSON line (kind=drift_compare); ``compare()`` returns it as a
+dict.
 """
 
 import json
@@ -28,6 +29,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import jax
 import numpy as np
 
 
@@ -51,22 +53,18 @@ def _fold_jf(fr, rg):
             fold(fr[comp], ax, dims[ax])
 
 
-def main():
+def compare(steps=24, npart=16_000, nx=16, resort=2, ion_mult=4):
+    """Run the bench-class deck ``steps`` steps in the framework (on the
+    default device) and in the f64 scalar reference; return the record
+    described in the module docstring."""
     from tests.ref import ref_impl as R
 
     from __graft_entry__ import _build
 
-    steps = int(sys.argv[1]) if len(sys.argv) > 1 else 24
-    npart = int(sys.argv[2]) if len(sys.argv) > 2 else 16_000
-    nx = int(sys.argv[3]) if len(sys.argv) > 3 else 16
-
-    resort = int(os.environ.get("BENCH_RESORT", 2))
-    ion_mult = int(os.environ.get("BENCH_ION_MULT", 4))
     sim = _build(nx=nx, ny=nx, nz=1, npart=npart // 2,
                  resort_interval=resort, ion_sort_mult=ion_mult)
     g = sim.grid
-    period = sim.opts.resort_interval * getattr(sim, "_cycle_mult", 1)
-    steps = max(period, (steps // period) * period)
+    steps = max(resort, (steps // resort) * resort)
 
     # ---- mirror the post-finalize state into f64 ----
     st0 = sim.state
@@ -90,8 +88,7 @@ def main():
     e0 = sim.energies()
     tot0 = float(sum(e0.values()))
     t0 = time.perf_counter()
-    sim.advance(steps)
-    int(np.asarray(sim.state.species[0].np))
+    jax.block_until_ready(sim.advance(steps))
     wall_fw = time.perf_counter() - t0
     e1 = sim.energies()
     tot1 = float(sum(e1.values()))
@@ -161,8 +158,7 @@ def main():
         scale = max(np.sqrt(np.mean(b * b)), 1e-30)
         rms[k] = float(np.sqrt(np.mean((a - b) ** 2)) / scale)
 
-    import jax
-    rec = dict(
+    return dict(
         ts=time.time(), kind="drift_compare",
         backend=jax.default_backend(),
         deck=f"{nx}x{nx} npart={npart}", steps=steps,
@@ -170,12 +166,18 @@ def main():
         drift_fw=drift_fw, drift_ref=drift_ref,
         drift_excess=drift_fw - drift_ref,
         field_rms=rms, dropped_movers=movers,
-        wall_fw=round(wall_fw, 3), wall_ref=round(wall_ref, 3))
-    line = json.dumps(rec)
-    print(line)
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "EVIDENCE.jsonl"), "a") as fh:
-        fh.write(line + "\n")
+        wall_fw=wall_fw, wall_ref=wall_ref)
+
+
+def main():
+    steps = int(sys.argv[1]) if len(sys.argv) > 1 else 24
+    npart = int(sys.argv[2]) if len(sys.argv) > 2 else 16_000
+    nx = int(sys.argv[3]) if len(sys.argv) > 3 else 16
+    rec = compare(steps, npart, nx,
+                  resort=int(os.environ.get("BENCH_RESORT", 2)),
+                  ion_mult=int(os.environ.get("BENCH_ION_MULT", 4)))
+    print(json.dumps(rec))
+    movers = rec["dropped_movers"]
     if movers and any(movers.values()):
         print("DRIFT SUSPECT: dropped movers nonzero", movers)
 

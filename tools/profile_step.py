@@ -1,150 +1,225 @@
-"""Profile the advance step on the real chip and print a per-op time
-breakdown (aggregated from the jax.profiler perfetto trace).
+"""Profile the advance step of the bench-class deck on the GPU and print a
+per-op and per-phase device-time breakdown, reduced from the
+jax.profiler perfetto trace.
+
+Per-phase attribution uses the step's jax.named_scope names
+(``phase_sort``, ``phase_push``, ``phase_boundary``, ``phase_jf``,
+``phase_field``, ``phase_interp``, ``phase_emit``).  GPU kernel events
+carry only the kernel's name (fusions run inside CUDA graphs), so each
+kernel is mapped to its scope through the ``op_name`` metadata of the
+same-named instruction in the compiled HLO of the profiled executable.
+The device's busy time is the union of its op intervals; idle share is
+1 - busy / (first op start .. last op end).
 
 Usage: python tools/profile_step.py [npart] [nx] [steps]
-Env:   PROF_DIR (default /tmp/vpic_prof)
+Env:   PROF_DIR (default <checkout>/.profile_out), PROF_NY, PROF_NZ,
+       PROF_TAIL=1 (list the long tail op by op)
 """
 
 import glob
 import gzip
 import json
 import os
+import re
+import shutil
 import sys
+import time
 from collections import defaultdict
 
 import jax
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+PHASES = ("sort", "interp", "push", "emit", "boundary", "jf", "field")
+# envelope events that duplicate the leaf ops they contain
+ENVELOPES = ("jit_", "while", "body", "cond", "region", "XlaModule")
 
 
-def main():
-    npart = int(sys.argv[1]) if len(sys.argv) > 1 else 2_000_000
-    nx = int(sys.argv[2]) if len(sys.argv) > 2 else 128
-    steps = int(sys.argv[3]) if len(sys.argv) > 3 else 5
-    nz = int(os.environ.get("PROF_NZ", 1))
-    ny = int(os.environ.get("PROF_NY", nx))
-    prof_dir = os.environ.get("PROF_DIR", "/tmp/vpic_prof")
-
-    from __graft_entry__ import _build
-    sim = _build(nx=nx, ny=ny, nz=nz, npart=npart // 2)
-
-    sim.advance(1)
-    jax.block_until_ready(sim.state)
-
-    import time
-    t0 = time.perf_counter()
-    sim.advance(steps)
-    jax.block_until_ready(sim.state)
-    dt_plain = time.perf_counter() - t0
-    total = sum(int(np.asarray(sp.np)) for sp in sim.state.species)
-    print(f"== plain: {dt_plain/steps*1e3:.1f} ms/step, "
-          f"{total*steps/dt_plain/1e6:.1f} M pushes/s ==")
-
-    os.system(f"rm -rf {prof_dir}")
-    with jax.profiler.trace(prof_dir):
-        sim.advance(steps)
-        jax.block_until_ready(sim.state)
-
-    # aggregate device-side op durations from the perfetto trace
+def _load_trace(prof_dir):
     files = glob.glob(f"{prof_dir}/**/*.trace.json.gz", recursive=True)
     if not files:
-        print("no trace found")
-        return
+        return None
     with gzip.open(sorted(files)[-1], "rt") as fh:
-        trace = json.load(fh)
-    events = trace["traceEvents"]
+        return json.load(fh)["traceEvents"]
 
-    # restrict to the leaf-op track ("XLA Ops") of device processes —
-    # module-level tracks (jit_*, while bodies) would double-count
-    device_pids = set()
-    op_tids = set()
+
+def _busy_ms(intervals):
+    """Union length (ms) of [start, end) intervals in microseconds."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def hlo_phase_map(hlo_text):
+    """{kernel name: phase} from compiled HLO text: an instruction's
+    ``op_name`` metadata holds the jax.named_scope stack.  Kernel names
+    in the trace spell the instruction's dots and dashes as '_'."""
+    out = {}
+    for line in hlo_text.splitlines():
+        m = re.match(r'\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*op_name="([^"]*)"',
+                     line)
+        if m:
+            ph = re.search(r"phase_([a-z]+)", m.group(2))
+            if ph:
+                out[re.sub(r"[.\-]", "_", m.group(1))] = ph.group(1)
+    return out
+
+
+def _phase_of(name, meta, phase_map):
+    for p in PHASES:
+        if f"phase_{p}" in meta or f"phase_{p}" in name:
+            return p
+    base = re.sub(r"[.\-]", "_", name)
+    if base in phase_map:
+        return phase_map[base]
+    # sort kernels are named after their HLO sort instruction plus a suffix
+    stem = re.sub(r"(_\d+)+(__\d+)?$", "", base)
+    hits = {v for k, v in phase_map.items() if k.startswith(stem + "_")
+            or k == stem}
+    return hits.pop() if len(hits) == 1 else "other"
+
+
+def reduce_trace(events, steps, phase_map=None):
+    """Per-thread, per-op and per-phase device time from perfetto
+    events; ``phase_map`` maps kernel names to phases (hlo_phase_map)."""
+    phase_map = phase_map or {}
+    pname, tname = {}, {}
     for e in events:
         if e.get("ph") != "M":
             continue
         if e.get("name") == "process_name":
-            name = e.get("args", {}).get("name", "")
-            if "TPU" in name or "/device:" in name:
-                device_pids.add(e["pid"])
-        if e.get("name") == "thread_name":
-            if e.get("args", {}).get("name") == "XLA Ops":
-                op_tids.add((e["pid"], e.get("tid")))
-    by_name = defaultdict(float)
-    by_phase = defaultdict(float)
-    count = defaultdict(int)
-    detail = {}
-    total_dev = 0.0
+            pname[e["pid"]] = e.get("args", {}).get("name", "")
+        elif e.get("name") == "thread_name":
+            tname[(e["pid"], e.get("tid"))] = e.get("args", {}).get("name",
+                                                                    "")
+    dev_pids = {p for p, n in pname.items()
+                if "/device:" in n and "CPU" not in n.upper()}
+    per_thread = defaultdict(lambda: [0, 0.0])
     for e in events:
-        if e.get("ph") != "X":
-            continue
-        if device_pids and e.get("pid") not in device_pids:
-            continue
-        if op_tids and (e.get("pid"), e.get("tid")) not in op_tids:
+        if e.get("ph") == "X" and e.get("pid") in dev_pids:
+            t = per_thread[(pname[e["pid"]],
+                            tname.get((e["pid"], e.get("tid")), "?"))]
+            t[0] += 1
+            t[1] += e.get("dur", 0) / 1e3
+    print("== device trace lines (process | thread: events, ms) ==")
+    for (p, t), (n, ms) in sorted(per_thread.items()):
+        print(f"  {p} | {t}: {n} events, {ms:.3f} ms")
+
+    # leaf ops: the "XLA Ops" line when the trace has one, else every
+    # stream line of the device
+    names = {k: v for k, v in tname.items() if k[0] in dev_pids}
+    op_tids = {k for k, v in names.items() if v == "XLA Ops"}
+    if not op_tids:
+        op_tids = {k for k, v in names.items()
+                   if v.startswith("Stream") or "stream" in v.lower()}
+
+    by_name, count, detail = defaultdict(float), defaultdict(int), {}
+    by_phase = defaultdict(float)
+    intervals = []
+    for e in events:
+        if e.get("ph") != "X" or (e.get("pid"), e.get("tid")) not in op_tids:
             continue
         name = e.get("name", "?")
-        # module/scan-level envelope events duplicate their leaf ops
-        if name.startswith(("jit_", "while", "body", "cond")):
+        if name.startswith(ENVELOPES):
             continue
-        dur = e.get("dur", 0) / 1e3  # us -> ms
+        dur = e.get("dur", 0) / 1e3
         by_name[name] += dur
         count[name] += 1
-        total_dev += dur
+        intervals.append((e["ts"], e["ts"] + e.get("dur", 0)))
         args = e.get("args", {}) or {}
-        meta = str(args.get("long_name") or args.get("tf_op")
-                   or args.get("source") or "")
-        if name not in detail:
-            detail[name] = meta[:160]
-        # phase attribution via jax.named_scope tags in the op path
-        phase = "other"
-        for p in ("sort", "interp", "push", "emit", "boundary", "jf",
-                  "field"):
-            if f"phase_{p}" in meta or f"phase_{p}" in name:
-                phase = p
-                break
-        else:
-            if "sort" in name:
-                phase = "sort"
-            elif "pallas" in name or "fused" in name:
-                phase = "push"
-        by_phase[phase] += dur
+        meta = " ".join(str(v) for v in args.values())
+        detail.setdefault(name, meta[:160])
+        by_phase[_phase_of(name, meta, phase_map)] += dur
+    total = sum(by_name.values())
+    busy = _busy_ms(intervals)
+    span = ((max(e for _, e in intervals) - min(s for s, _ in intervals))
+            / 1e3 if intervals else 0.0)
+    return dict(by_name=by_name, count=count, detail=detail,
+                by_phase=by_phase, total=total,
+                busy=busy, span=span)
 
-    print(f"\n== per-phase (named_scope) breakdown ==")
+
+def main():
+    npart = int(sys.argv[1]) if len(sys.argv) > 1 else 4_000_000
+    nx = int(sys.argv[2]) if len(sys.argv) > 2 else 128
+    steps = int(sys.argv[3]) if len(sys.argv) > 3 else 6
+    nz = int(os.environ.get("PROF_NZ", 1))
+    ny = int(os.environ.get("PROF_NY", nx))
+    prof_dir = os.environ.get("PROF_DIR", os.path.join(ROOT, ".profile_out"))
+
+    from vpic_tpu.core.diagnostics import require_gpu
+
+    dev = require_gpu()
+    print(f"device: {dev['kind']} x{dev['count']} [{dev['nvidia_smi']}]")
+    from __graft_entry__ import _build
+    sim = _build(nx=nx, ny=ny, nz=nz, npart=npart // 2)
+    k = sim.opts.resort_interval
+    steps = max(k, (steps // k) * k)
+
+    jax.block_until_ready(sim.advance(steps))       # compile + warm up
+    t0 = time.perf_counter()
+    jax.block_until_ready(sim.advance(steps))
+    dt_plain = time.perf_counter() - t0
+    total_np = sum(int(np.asarray(sp.np)) for sp in sim.state.species)
+    print(f"== untraced: {dt_plain / steps * 1e3:.3f} ms/step, "
+          f"{total_np * steps / dt_plain:.4e} pushes/s ({steps} steps) ==")
+
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    with jax.profiler.trace(prof_dir, create_perfetto_trace=True):
+        jax.block_until_ready(sim.advance(steps))
+
+    events = _load_trace(prof_dir)
+    if events is None:
+        print("no trace found")
+        return
+    # the profiled executable: whole cycles run as one scanned dispatch
+    m = steps // k
+    fn = sim._cycles_scan(m) if m >= 2 else sim._advance_cycle
+    hlo = fn.lower(sim.state).compile().as_text()
+    r = reduce_trace(events, steps, hlo_phase_map(hlo))
+    total = max(r["total"], 1e-9)
+    print(f"\n== device busy {r['busy'] / steps:.3f} ms/step over a "
+          f"{r['span'] / steps:.3f} ms/step op span: idle share "
+          f"{1 - r['busy'] / max(r['span'], 1e-9):.4f} ==")
+    print("\n== per-phase (named_scope of each kernel) ==")
     print(f"{'phase':>10} {'ms/step':>9} {'%':>6}")
-    for p, ms in sorted(by_phase.items(), key=lambda kv: -kv[1]):
-        print(f"{p:>10} {ms/steps:9.2f} {100*ms/total_dev:6.1f}")
-    print()
+    for p, ms in sorted(r["by_phase"].items(), key=lambda kv: -kv[1]):
+        print(f"{p:>10} {ms / steps:9.3f} {100 * ms / total:6.1f}")
 
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:50]
-    print(f"{'ms_total':>9} {'ms/step':>8} {'n':>6}  name")
+    rows = sorted(r["by_name"].items(), key=lambda kv: -kv[1])[:40]
+    print(f"\n{'ms_total':>9} {'ms/step':>8} {'n':>6}  name")
     for name, ms in rows:
-        print(f"{ms:9.2f} {ms/steps:8.2f} {count[name]:6d}  {name[:60]}  "
-              f"{detail.get(name, '')}")
+        print(f"{ms:9.3f} {ms / steps:8.3f} {r['count'][name]:6d}  "
+              f"{name[:60]}  {r['detail'].get(name, '')[:100]}")
 
-    # the long tail: bucket every op below the listing threshold by its
-    # opcode family so "death by a thousand cuts" shows up with a name
-    import re as _re
+    # the long tail by opcode family, so many small ops show up by name
     listed = {n for n, _ in rows}
-    fam_ms = defaultdict(float)
-    fam_n = defaultdict(int)
-    for name, ms in by_name.items():
-        if name in listed:
-            continue
-        fam = _re.sub(r"[.\d]+$", "", name)
-        fam_ms[fam] += ms
-        fam_n[fam] += count[name]
+    fam_ms, fam_n = defaultdict(float), defaultdict(int)
+    for name, ms in r["by_name"].items():
+        if name not in listed:
+            fam = re.sub(r"[._\d]+$", "", name)
+            fam_ms[fam] += ms
+            fam_n[fam] += r["count"][name]
     print("\n== long tail by opcode family (ops not listed above) ==")
-    print(f"{'ms_total':>9} {'ms/step':>8} {'n':>6}  family")
-    for fam, ms in sorted(fam_ms.items(), key=lambda kv: -kv[1])[:25]:
-        print(f"{ms:9.2f} {ms/steps:8.2f} {fam_n[fam]:6d}  {fam}")
-
+    for fam, ms in sorted(fam_ms.items(), key=lambda kv: -kv[1])[:20]:
+        print(f"{ms:9.3f} {ms / steps:8.3f} {fam_n[fam]:6d}  {fam}")
     if os.environ.get("PROF_TAIL"):
-        print("\n== top tail ops (individually) ==")
-        tail = [(n, m) for n, m in by_name.items() if n not in listed]
+        tail = [(n, m) for n, m in r["by_name"].items() if n not in listed]
         for name, ms in sorted(tail, key=lambda kv: -kv[1])[:40]:
-            print(f"{ms:9.2f} {ms/steps:8.2f} {count[name]:6d}  {name[:40]}"
-                  f"  {detail.get(name, '')[:140]}")
-    print(f"sum over tracked events: {total_dev:.1f} ms "
-          f"({total_dev/steps:.1f} ms/step)")
+            print(f"{ms:9.3f} {ms / steps:8.3f} {r['count'][name]:6d}  "
+                  f"{name[:40]}  {r['detail'].get(name, '')[:140]}")
+    print(f"sum over leaf op events: {r['total']:.3f} ms "
+          f"({r['total'] / steps:.3f} ms/step)")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,11 @@
-"""vpic_tpu — a TPU-native (JAX/XLA/Pallas) relativistic electromagnetic
-particle-in-cell framework with the capabilities of VPIC 3.1.2.1
-(pdlfs/old-vpic).
+"""vpic_tpu — a JAX/XLA relativistic electromagnetic particle-in-cell
+framework with the capabilities of VPIC 3.1.2.1 (pdlfs/old-vpic).
 
-This is a from-scratch TPU-first re-design, not a port: the compute path is
-jitted JAX + Pallas kernels over SoA pytrees, domain decomposition is a
-`jax.sharding.Mesh` + `shard_map` with ICI collectives, and the deck DSL is a
-Python configuration API with the same vocabulary as the reference's
-compile-time decks (reference: /root/reference/src/vpic/vpic.hxx:126-555).
+This is a from-scratch re-design, not a port: the compute path is jitted
+JAX over SoA pytrees, domain decomposition is a `jax.sharding.Mesh` +
+`shard_map` with collectives between devices, and the deck DSL is a Python
+configuration API with the same vocabulary as the reference's compile-time
+decks (reference: src/vpic/vpic.hxx:126-555).
 
 Physics per step (reference: src/vpic/advance.cxx:13-244):
   clear accumulators -> sort -> collisions -> advance_p (Boris push +
@@ -26,15 +25,24 @@ import jax as _jax
 # every array constructor in this package passes an explicit dtype.
 _jax.config.update("jax_enable_x64", True)
 
-# The advance graph is large (minutes of XLA compile); cache compiled
-# executables across processes.  Users override via JAX_COMPILATION_CACHE_DIR
-# or VPIC_TPU_NO_COMPILE_CACHE.
-if (not _os.environ.get("VPIC_TPU_NO_COMPILE_CACHE")
-        and not _os.environ.get("JAX_COMPILATION_CACHE_DIR")):
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.path.expanduser("~/.cache/vpic_tpu/jax"))
+
+def configure_compile_cache(environ=_os.environ):
+    """Keep compiled executables across processes (the advance graph takes
+    minutes to compile).  When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX
+    reads it itself and nothing is set here; otherwise the cache lives at
+    the fixed path ``<checkout>/.jax_cache``.  Returns the directory set,
+    or None."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    path = _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
+    _jax.config.update("jax_compilation_cache_dir", path)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    return path
+
+
+configure_compile_cache()
 
 __version__ = "0.1.0"
 

@@ -11,7 +11,7 @@ bc[BOUNDARY(-i,-j,-k)]).
   face receives our own opposite-face payload; unjoined faces receive None
   (local BCs handle them).
 - :class:`ShardComm`: inside ``shard_map`` — joined faces are a
-  ``lax.ppermute`` ring per mesh axis (ICI neighbor exchange).
+  ``lax.ppermute`` ring per mesh axis (neighbor exchange between devices).
 """
 
 from __future__ import annotations

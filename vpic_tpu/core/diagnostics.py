@@ -8,11 +8,14 @@ auxiliary diagnostics (SURVEY.md §5).
   phase of advance, reported at status_interval): here a phase-profiled
   step that jits each phase separately and synchronizes between them.
 - sim_log (deck_wrapper.cxx:45-53): rank-0 stderr logging.
+- Device report: which accelerator a measurement ran on, and the refusal
+  to measure anywhere but on a GPU.
 """
 
 from __future__ import annotations
 
 import hashlib
+import subprocess
 import sys
 import time
 
@@ -24,6 +27,36 @@ def sim_log(msg, rank: int = 0):
     """Rank-0 stderr log line (deck_wrapper.cxx:48-53)."""
     if rank == 0:
         print(f"[vpic_tpu] {msg}", file=sys.stderr, flush=True)
+
+
+def gpu_name_and_power_limit() -> str:
+    """The cards' names and power limits as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (one
+    card per line, joined by "; ").  A card set below its maximum power
+    runs slower under load, so every timing is reported beside this."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable ({e})"
+    lines = [ln.strip() for ln in r.stdout.splitlines() if ln.strip()]
+    return "; ".join(lines) if lines else f"nvidia-smi rc={r.returncode}"
+
+
+def require_gpu() -> dict:
+    """Return the device report of an NVIDIA GPU backend, or exit with a
+    non-zero status: a measurement never falls back to the CPU."""
+    backend = jax.default_backend()
+    if backend != "gpu":
+        raise SystemExit(
+            f"no GPU backend: JAX's default backend is {backend!r}; "
+            "this measurement runs only on an NVIDIA GPU")
+    devs = jax.devices()
+    return dict(platform=devs[0].platform, kind=devs[0].device_kind,
+                count=len(devs), jax=jax.__version__,
+                nvidia_smi=gpu_name_and_power_limit())
 
 
 def checksum_fields(state) -> str:
@@ -84,48 +117,25 @@ def time_phases(sim, n_steps: int = 3) -> dict:
     nb = st.grid_arrays.neighbor
     out = {}
 
-    def barrier(r):
-        # a device->host scalar fetch is the only reliable barrier over
-        # remote/tunneled backends (block_until_ready can return early)
-        import numpy as _np
-        leaves = [x for x in jax.tree.leaves(r)
-                  if hasattr(x, "dtype") and not jax.dtypes.issubdtype(
-                      x.dtype, jax.dtypes.prng_key)]
-        if leaves:
-            _np.asarray(jax.tree.leaves(leaves[-1])[0]).ravel()[:1]
-
     def timed(name, fn, *args):
-        r = fn(*args)
-        barrier(r)
+        r = jax.block_until_ready(fn(*args))
         t0 = time.perf_counter()
         for _ in range(n_steps):
             r = fn(*args)
-        barrier(r)
+        jax.block_until_ready(r)
         out[name] = (time.perf_counter() - t0) / n_steps
         return r
 
-    # mirror the production step's path selection (engine/step.py)
-    import os
-    fused = not (jax.default_backend() == "cpu"
-                 or os.environ.get("VPIC_TPU_DISABLE_PALLAS"))
     n_axes = (g.gnx > 1) + (g.gny > 1) + (g.gnz > 1)
     n_walk = min(4, n_axes + 1)
 
     acc0 = jnp.zeros((g.nv, 12), jnp.float32)
-    interp_t = None
-    if fused:
-        interp_t = timed("make_interp_t", jax.jit(
-            lambda ip: ppush.make_interp_t(ip, g,
-                                           exc_t=st.grid_arrays.exc_t)),
-            st.interpolator)
     for sp in st.species:
-        timed(f"sort[{sp.name}]",
-              jax.jit(lambda s: paux.sort_p(s, g)), sp)
+        timed(f"sort[{sp.name}]", jax.jit(paux.sort_p), sp)
         timed(f"advance_p[{sp.name}]",
-              jax.jit(lambda s, a, it: ppush.advance_p(
-                  s, st.interpolator, a, nb, g, n_walk=n_walk,
-                  sorted_deposit=fused, fused=fused, interp_t=it)),
-              sp, acc0, interp_t)
+              jax.jit(lambda s, a: ppush.advance_p(
+                  s, st.interpolator, a, nb, g, n_walk=n_walk)),
+              sp, acc0)
     timed("advance_b", jax.jit(lambda f: stencil.advance_b(f, g, 0.5)),
           st.field)
     timed("advance_e", jax.jit(lambda f: stencil.advance_e(
@@ -138,5 +148,10 @@ def time_phases(sim, n_steps: int = 3) -> dict:
     timed("unload_accumulator",
           jax.jit(lambda f, a: sfi.unload_accumulator(f, a, g)),
           st.field, acc0)
-    timed("full_step", sim._advance_fn, st)
+    # a non-donating jit of the production step: the timing loop feeds
+    # the same state to every call
+    timed("full_step", jax.jit(make_advance(
+        g, sim.comm, pcomm=None, opts=sim.opts,
+        boundary_handlers=tuple(sim._boundary_handlers),
+        emitters=tuple(sim._emitters), **sim._hooks)), st)
     return out

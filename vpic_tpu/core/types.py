@@ -1,6 +1,6 @@
 """Core pytree state types.
 
-TPU-first re-design of the reference's core structs:
+Re-design of the reference's core structs for JAX:
 
 - ``field_t`` (16 floats + 8 material ids per voxel,
   src/field_advance/field_advance.h:56-171) becomes :class:`FieldState`, a
@@ -222,17 +222,9 @@ class GridArrays:
     ``neighbor[i, f]`` for face f of voxel i is either a local destination
     voxel (>= 0) or a negative boundary code (see NEIGHBOR_*).  Mirrors
     ``grid_t::neighbor`` (grid.h:149-154) with local int32 encoding.
-
-    ``exc_t`` holds the fused kernel's 14 static exception/wrap rows
-    (exc bits + 6 face-shifted copies + wrap bits + 6 face-shifted
-    copies, in the kernel's voxel space — tiled/interior on
-    large grids), computed ONCE at init: rebuilding them in-step cost
-    ~27 ms/step at 512^2 (six 1M-element gathers + a neighbor row
-    gather).
     """
 
     neighbor: jax.Array  # (nv, 6) int32
-    exc_t: jax.Array     # (14, nvk) f32 static exception/wrap rows
 
 
 # ---------------------------------------------------------------------------
@@ -413,51 +405,6 @@ class SpeciesState:
         return (
             jnp.arange(self.max_np, dtype=jnp.int32) < self.np
         ) & (self.i >= 0)
-
-
-@register_dataclass(meta=("name", "sid", "max_np", "sort_interval",
-                          "uniform_q", "tiled"))
-@dataclasses.dataclass
-class PackedSpecies:
-    """Closed-cycle fast-path species layout: the fused push kernel's own
-    (8, max_np) row block [dx dy dz ux uy uz q vox] carried BETWEEN steps,
-    so each step's kernel input is the previous step's ``pout[0:8]``
-    tile-aligned slice — no per-column extraction/concat relayouts.
-
-    Valid only while nothing can create, kill, tag, or migrate particles
-    (no absorbing faces, emitters, injection hooks, boundary rounds, or
-    multishard migration): ``np`` is constant, no zombies exist, and the
-    q row (dead slots zeroed) is permutation-invariant.  ``vox`` is in
-    KERNEL space (tiled-x when the grid is tiled) as exact-f32 integers.
-    Convert with particles.push.pack_species / unpack_species at cycle
-    boundaries."""
-
-    name: str
-    sid: int
-    max_np: int
-    sort_interval: int
-    uniform_q: bool
-    tiled: bool
-
-    q_m: jax.Array          # charge/mass ratio (scalar f32)
-    np: jax.Array           # live particle count (scalar int32)
-    nm: jax.Array           # dropped-mover count (scalar int32)
-    pk: jax.Array           # (8, max_np) f32 kernel-layout state rows
-    # merge re-sort carry (particles/sort_pallas.py): the previous sort's
-    # sorted key snapshot (key0[0] < 0 = no snapshot yet -> one bitonic
-    # sort re-establishes it) and its cumulative key table, so steady-state
-    # re-sorts are O(n) two-run merges instead of O(n log^2 n) bitonics
-    key0: jax.Array         # (max_np,) int32
-    ctot: jax.Array         # (kernel_nv+3,) int32
-    # carried per-block deposit-window starts, computed at sort time from
-    # the exactly-sorted keys (push_pallas.window_starts_sorted) and held
-    # fixed between sorts: the only placement immune to wrap-stranger
-    # poisoning of per-step block statistics (NOTES_ROUND5.md, 64^3
-    # diagnosis).  wstart[0] < 0 = no snapshot (robust per-step fallback)
-    wstart: jax.Array       # (n_wstart,) int32
-
-    def replace(self, **kw) -> "PackedSpecies":
-        return dataclasses.replace(self, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ Models:
   surface emission variants; here expressed as ChildLangmuir subclasses
   overriding the per-face charge law.
 
-TPU re-design: the component list is a fixed array; every step emits a
+Re-design: the component list is a fixed array; every step emits a
 static K = n_components * n_emit_per_face block of slots (non-emitting
 faces produce dead slots reclaimed by the per-step sort/compaction).
 """

@@ -4,7 +4,7 @@
 Re-design of the reference's 3D "superhexahedral" domain decomposition
 (src/grid/partition.c:36-85 + the mp/MPI layer): every shard runs the same
 per-shard program; field halos and particle migration ride
-``lax.ppermute`` rings over ICI (comm/facecomm.ShardComm), and reductions
+``lax.ppermute`` rings between devices (comm/facecomm.ShardComm), and reductions
 are ``lax.psum``.
 
 Distributed state layout: every SimState leaf gains three leading shard axes
@@ -64,14 +64,12 @@ def shard_state(state, mesh: Mesh):
 
 
 def make_distributed_advance(g: Grid, mesh: Mesh,
-                             opts: StepOptions = StepOptions(),
-                             do_sort: bool = True, **hooks):
+                             opts: StepOptions = StepOptions(), **hooks):
     """Build the jitted multi-shard advance: distributed SimState ->
     distributed SimState."""
     names = _axis_names_for(g)
     comm = ShardComm(g, axis_names=names)
-    adv = make_advance(g, comm, pcomm=comm, opts=opts, do_sort=do_sort,
-                       **hooks)
+    adv = make_advance(g, comm, pcomm=comm, opts=opts, **hooks)
 
     def per_shard(state):
         state = jax.tree.map(lambda a: a.reshape(a.shape[3:]), state)

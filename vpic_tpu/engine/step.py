@@ -21,8 +21,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from ..core.types import FieldState, Grid, SimState
-from ..field import ghost, stencil, sync
+from ..core.types import Grid, NEIGHBOR_REFLECT, PERIODIC_FIELDS, SimState
+from ..field import stencil, sync
 from ..particles import aux as paux
 from ..particles import boundary as pboundary
 from ..particles import push as ppush
@@ -44,26 +44,11 @@ class StepOptions:
     # None = max_inj.  Overflow is retried on later rounds, mirroring the
     # reference's bounded two-phase exchange (boundary_p.c:341-385).
     mig_cap: int | None = None
-    # Re-sort particles by voxel every k steps (the reference's per-species
-    # sort_interval, sort_p.c; the fused kernel tolerates the drift between
-    # sorts via its windowed out-of-window fix-up path).  The deck API
-    # compiles sorting and non-sorting advance variants and alternates.
+    # Steps per dispatched cycle: the deck API jits k steps as one
+    # executable (and scans whole runs of cycles) so the host does not pay
+    # a round trip per step.  Sorting follows each species' own
+    # sort_interval (sort_p.c; species_advance.h:56).
     resort_interval: int = 1
-    # Capacity of the fused kernel's per-species fix-up buffer (exports +
-    # out-of-window lanes); None = auto from max_np and resort_interval.
-    fix_cap: int | None = None
-    # Use the sorted one-hot-matmul Pallas deposition kernel (requires the
-    # accumulator (16, nv_pad) to fit VMEM; None = auto by grid size) and
-    # keep particles sorted by voxel every step.
-    sorted_deposit: bool | None = None
-    # Fully fused Pallas push kernel (gather+Boris+segment1+deposit in one
-    # kernel; needs interp+acc resident in VMEM; None = auto)
-    fused_push: bool | None = None
-    # O(n) two-run merge re-sort for packed species (sort_pallas.py)
-    # instead of the O(n log^2 n) bitonic; None = auto (on wherever the
-    # packed cycle runs).  Falls back to the bitonic in-graph whenever
-    # its provisioning is defeated — never wrong, only slower.
-    merge_sort: bool | None = None
 
 
 def _interval_hit(step, interval: int):
@@ -131,8 +116,6 @@ def make_advance(
     user_field_injection: Optional[Callable] = None,
     emitters: tuple = (),
     boundary_handlers: tuple = (),
-    do_sort=True,
-    packed: bool = False,
 ):
     """Build the (jittable) advance function for a fixed configuration.
     The ``user_*`` hooks are jax-traceable callbacks
@@ -141,33 +124,12 @@ def make_advance(
 
     # under the Courant limit a particle crosses at most one face per
     # ACTIVE axis, so n_axes+1 streak segments always suffice (2D decks:
-    # 3 instead of 4 — one less in-kernel deposit matmul per row).
-    # Reflecting walls burn an extra zero-length segment when a lane
-    # lands exactly on the face, so wall decks get one more.
-    from ..core.types import NEIGHBOR_REFLECT as _REFL
+    # 3 instead of 4).  Reflecting walls burn an extra zero-length
+    # segment when a lane lands exactly on the face, so wall decks get
+    # one more.
     n_axes = (g.gnx > 1) + (g.gny > 1) + (g.gnz > 1)
-    has_refl = any(b == _REFL for b in g.pbc)
+    has_refl = any(b == NEIGHBOR_REFLECT for b in g.pbc)
     n_walk = min(opts.n_walk, n_axes + 1 + int(has_refl))
-
-    sorted_deposit = opts.sorted_deposit
-    if sorted_deposit is None:
-        # VMEM budget for the (16, nv_pad) transposed accumulator
-        sorted_deposit = g.nv <= 120_000
-    fused_push = opts.fused_push
-    if fused_push is None:
-        from ..particles.push_pallas import fused_vmem_ok
-        fused_push = fused_vmem_ok(g.nv, g.nxg)
-    import os
-    if (not os.environ.get("VPIC_TPU_FORCE_FUSED")
-            and (jax.default_backend() == "cpu"
-                 or os.environ.get("VPIC_TPU_DISABLE_PALLAS"))):
-        # pallas interpret mode is slow; tests run the XLA scatter path
-        # (VPIC_TPU_FORCE_FUSED=1 keeps the fused path for interpret-mode
-        # parity tests of the full step/cycle)
-        sorted_deposit = False
-        fused_push = False
-    if fused_push:
-        sorted_deposit = True   # fused kernel requires per-step sorting
 
     # Boundary (guard-list) rounds are only reachable when something can
     # actually put a particle on the guard list or inject one mid-step:
@@ -175,7 +137,6 @@ def make_advance(
     # or user injection.  Periodic/reflecting faces resolve inside the
     # walk; leftover exhausted walkers are dropped+counted, mirroring the
     # reference's "Ignoring unprocessed movers" path (advance.cxx:98-103).
-    from ..core.types import NEIGHBOR_REFLECT, PERIODIC_FIELDS
     needs_boundary = (
         pcomm is not None
         or bool(boundary_handlers)
@@ -183,76 +144,19 @@ def make_advance(
         or user_particle_injection is not None
         or any(b not in (PERIODIC_FIELDS, NEIGHBOR_REFLECT) for b in g.pbc))
 
-    if packed:
-        # packed-cycle species (core.types.PackedSpecies) are only valid
-        # when nothing can create/kill/tag/migrate particles and the
-        # fused kernel is active (the layout IS the kernel's I/O block)
-        if needs_boundary or user_particle_collisions is not None \
-                or not fused_push:
-            raise ValueError("packed advance requires the fused kernel "
-                             "and a closed configuration (no boundary "
-                             "rounds, emitters, injection, or collisions)")
-
     def advance(state: SimState) -> SimState:
         f = state.field
         nb = state.grid_arrays.neighbor
         acc = jnp.zeros((g.nv, 12), dtype=jnp.float32)
 
-        # -- sort (deposition locality; on resort_interval steps when the
-        # sorted Pallas paths are active — they tolerate inter-sort drift
-        # via the out-of-window fix-up — else on the reference's
-        # per-species sort_interval) --
-        # the fused kernel on a tiled grid wants tiled-key ordering
-        sort_fn = ((lambda s: paux.sort_p(s, g)) if fused_push
-                   else paux.sort_p)
+        # -- sort (deposition locality) on each species' sort_interval --
         scope = jax.named_scope
         species = []
-        for si, sp in enumerate(state.species):
-            # per-species sort flag: the sort is ~half the sorting step's
-            # device time, and slow species tolerate long intervals (the
-            # reference's per-species sort_interval, species_advance.h:56;
-            # production decks sort ions ~5-10x less often than electrons)
-            ds = do_sort if isinstance(do_sort, bool) else do_sort[si]
-            if packed:
-                if ds:
-                    merge = opts.merge_sort
-                    if merge is None:
-                        # opt-in: on this backend lax.sort is pass-count
-                        # (latency) bound, ~flat in n below ~600k, so the
-                        # composed-XLA merge path LOSES to the bitonic at
-                        # bench scale (74 ms vs 14 ms standalone; the
-                        # searchsorted/compaction/small-sort glue is
-                        # latency-bound too — tools/sort_bench.py,
-                        # NOTES_ROUND5.md).  The kernel itself is correct
-                        # and tested; a future full kernelization of the
-                        # table/extract stages is the path to <=3 ms.
-                        import os as _os
-                        merge = bool(_os.environ.get(
-                            "VPIC_TPU_FORCE_MERGE_SORT"))
-                    with scope("phase_sort"):
-                        if merge:
-                            # drift between THIS species' sorts provisions
-                            # the mover buffer (same model as fix_cap)
-                            k_eff = opts.resort_interval
-                            if sp.sort_interval > k_eff:
-                                k_eff = sp.sort_interval
-                            sp = paux.sort_p_packed_merge(sp, g, k_eff)
-                        else:
-                            sp = paux.sort_p_packed(sp, g)
-            elif sorted_deposit:
-                # Only the FUSED kernel tolerates inter-sort drift (its
-                # window pre-bias + out-of-window fix-up); the sorted-but-
-                # unfused deposit kernel has no pre-bias, so skipping the
-                # sort there would silently drop drifted particles'
-                # current (deposit_sorted_into caps overflow).  Sort every
-                # step unless the fused path is active.
-                if ds or not fused_push:
-                    with scope("phase_sort"):
-                        sp = sort_fn(sp)
-            elif sp.sort_interval > 0:
+        for sp in state.species:
+            if sp.sort_interval > 0:
                 hit = (state.step % sp.sort_interval) == 0
                 with scope("phase_sort"):
-                    sp = lax.cond(hit, sort_fn, lambda s: s, sp)
+                    sp = lax.cond(hit, paux.sort_p, lambda s: s, sp)
             species.append(sp)
 
         state = dataclasses.replace(state, species=tuple(species))
@@ -260,84 +164,12 @@ def make_advance(
             state = user_particle_collisions(state)
 
         # -- particle push + current deposition --
-        with scope("phase_interp"):
-            interp_t = (ppush.make_interp_t(state.interpolator, g,
-                                            exc_t=state.grid_arrays.exc_t)
-                        if fused_push else None)
         species = []
         for sp in state.species:
-            fix_cap = opts.fix_cap
-            if fix_cap is None:
-                # Provision from the measured traffic model
-                # (NOTES_ROUND4): per step, n_fix ≈ exports + wrap-drift,
-                #   exports     ≈ 1.1% of np (Courant-bound crossers that
-                #                 walk past n_walk or leave the window),
-                #   wrap-drift  ≈ 1%/step·steps_since_sort of np
-                #                 (periodic wrap-crossers stay far out of
-                #                 their block's window until the next
-                #                 sort), saturating near the boundary-row
-                #                 population (~5%).
-                # The resume pass is nearly flat in K after pick_layout
-                # (0.55→0.74 ms from 9k→90k lanes, tools/resume_probe.py)
-                # so the cap carries a ~35% margin over the measured peak;
-                # overflow is counted in sp.nm and WARNed at status time,
-                # never silent.  A species with its own longer
-                # sort_interval drifts for that many steps.
-                k = opts.resort_interval
-                if fused_push and sp.sort_interval > k:
-                    k = sp.sort_interval
-                if fused_push:
-                    from ..particles import push_pallas as _pk
-                    lay = _pk.kernel_layout(g)
-                    if lay == "interior":
-                        # circular layout: wraps are ordinary in-window
-                        # strides, so inter-sort drift only exports the
-                        # few sustained same-direction multi-crossers.
-                        # r5 sweep at the bench shape (VPIC_TPU_FIX_CAP):
-                        # peak n_fix ~ 0.61% of max_np (clean at 1.16%,
-                        # 696 drops/32 steps at 0.58%) -> ~50% margin
-                        rate = 0.006 + min(0.0015 * k, 0.012)
-                        # large-nx interior grids (256^2: window 768,
-                        # pre 384): k accumulated y-strides (k*(nx+1))
-                        # escape the window, so inter-sort y-drift joins
-                        # the fix-up traffic (r5: 146k drops/32 steps at
-                        # 256^2/4M under the base rate)
-                        win_i, pre_i = _pk.kernel_window(g)
-                        nx_i = g.gnx
-                        if min(k, 3) * (nx_i + 1) > min(pre_i,
-                                                        win_i - pre_i):
-                            rate += 0.004 * min(k, 4)
-                    else:
-                        rate = 0.022 + min(0.01 * k, 0.05)
-                    # an active axis whose voxel stride exceeds the deposit
-                    # window (the slowest axis of a 3D grid) exports EVERY
-                    # crossing to the fix-up — provision for a per-step
-                    # crossing-rate fraction, not just sort drift
-                    win = _pk.kernel_window(g)[0]
-                    strides = _pk.kernel_strides(g)
-                    if any(abs(s) >= win for s in strides):
-                        rate += 0.04
-                    elif lay == "tiled" and _pk.tile_shape(g)[1] > 1:
-                        # xy-tiled 3D: tile-seam crossings (~(1/tx+1/ty)
-                        # of transverse crossers) export every step
-                        rate += 0.02
-                else:
-                    rate = 0.022 + min(0.01 * k, 0.05)
-                fix_cap = max(8192, int(sp.max_np * rate))
             with scope("phase_push"):
-                if packed:
-                    sp, acc = ppush.advance_p_packed(
-                        sp, state.interpolator, acc, nb, g, n_walk=n_walk,
-                        table_t=interp_t, fix_cap=fix_cap)
-                else:
-                    sp, acc = ppush.advance_p(sp, state.interpolator, acc,
-                                              nb, g, n_walk=n_walk,
-                                              sorted_deposit=sorted_deposit,
-                                              fused=fused_push,
-                                              interp_t=interp_t,
-                                              fix_cap=fix_cap,
-                                              count_pending=not
-                                              needs_boundary)
+                sp, acc = ppush.advance_p(sp, state.interpolator, acc, nb, g,
+                                          n_walk=n_walk,
+                                          count_pending=not needs_boundary)
             species.append(sp)
         state = dataclasses.replace(state, species=tuple(species))
 
@@ -356,9 +188,7 @@ def make_advance(
                 state = user_particle_injection(state)
 
         # -- guard list processing (migration/absorption rounds) --
-        # NOTE: a lax.cond skip of empty rounds costs MORE than the round
-        # itself on TPU (conditionals copy their whole carry), so rounds
-        # run unconditionally when reachable; process_boundary is
+        # rounds run unconditionally when reachable; process_boundary is
         # O(max_inj) except for its one compaction pass.
         if needs_boundary:
             rng, sub = jax.random.split(state.rng)

@@ -1,6 +1,6 @@
 """Ghost fills and local boundary-condition adjusts for the Yee mesh.
 
-Faithful TPU re-implementation of:
+Faithful JAX re-implementation of:
 - src/field_advance/standard/local.c:50-445 (local ghosts + adjusts)
 - src/field_advance/standard/remote.c:61-297 (inter-domain ghost exchange)
 

@@ -1,6 +1,6 @@
 """Yee-mesh FDTD field solver kernels.
 
-Faithful TPU re-implementations (as fused XLA slab stencils over the whole
+Faithful JAX re-implementations (as fused XLA slab stencils over the whole
 owned region at once — the reference's interior/exterior pipeline split,
 advance_e.c:110-330, existed only for comm overlap, which XLA's scheduler
 now provides) of:

@@ -108,13 +108,7 @@ def build_neighbor_table(g: Grid, shard=(0, 0, 0)) -> np.ndarray:
 def make_grid_arrays(g: Grid, shard=(0, 0, 0)) -> GridArrays:
     import jax.numpy as jnp
 
-    from ..particles import push_pallas as pk
-
-    nb = jnp.asarray(build_neighbor_table(g, shard))
-    # the fused kernel's 14 static exception/wrap rows (exc bits + 6
-    # face-shifted copies + wrap bits + 6 face-shifted copies, in this
-    # grid's kernel layout), computed once here instead of every step
-    return GridArrays(neighbor=nb, exc_t=pk.exception_rows(nb, g))
+    return GridArrays(neighbor=jnp.asarray(build_neighbor_table(g, shard)))
 
 
 def shard_origin(g: Grid, shard=(0, 0, 0)):

@@ -25,10 +25,10 @@ from ..core.types import Grid, SimState
 # v2: load_checkpoint validates leaf shapes and pads 1-D particle leaves
 # up to a larger template capacity (define_species rounds max_np to a
 # 1024 multiple since r3; older checkpoints carry unaligned capacities).
-# v3: GridArrays.exc_t grew from 7 to 14 static rows (wrap bits) and 2D
-# grids moved to the ghost-free interior kernel layout; v2 checkpoints
-# fail shape validation with a clear error (rebuild from the deck).
-FORMAT_VERSION = 3
+# v3: GridArrays carried a second static table; v4 holds the neighbor
+# table alone, so v3 checkpoints fail the leaf-count check with a clear
+# error (rebuild from the deck).
+FORMAT_VERSION = 4
 
 
 def _flatten(state: SimState):

@@ -148,50 +148,32 @@ def accumulate_hydro_p(h, sp: SpeciesState, interp, g: Grid):
     return h.at[idx].add(contrib, mode="promise_in_bounds")
 
 
-def sort_p(sp: SpeciesState, g: Grid | None = None) -> SpeciesState:
+def sort_p(sp: SpeciesState) -> SpeciesState:
     """Sort particles by voxel (counting-sort analogue of sort_p.c:16-102,
     here a multi-operand ``lax.sort``) and compact zombies/free slots to the
     tail, refreshing ``np``.  Assumes mover state (mdx..., pc) is clear,
-    which holds between steps (finish_boundary).
-
-    When ``g`` is given and the fused kernel runs this grid in the
-    tiled-x layout, the sort key is the TILED index (arithmetic on sp.i)
-    so kernel blocks see monotone tiled windows."""
+    which holds between steps (finish_boundary)."""
     big = jnp.int32(2 ** 30)
-    key_src = sp.i
-    mapped = False
-    if g is not None:
-        from . import push_pallas as pk
-        if pk.kernel_layout(g) != "plain":
-            key_src = pk.kvox_of(g, jnp.maximum(sp.i, 0))
-            mapped = True
-    key = jnp.where(sp.alive, key_src, big)
+    key = jnp.where(sp.alive, sp.i, big)
 
-    # The bitonic network's cost is ~linear in payload columns, so carry
-    # only what the species actually needs: tag is dropped when no tracer
-    # was ever tagged (all-zero column is permutation-invariant), q is
-    # reconstructed from one scalar when the weight is uniform, and in the
-    # tiled-x layout the voxel is recomputed arithmetically from the sorted
-    # tiled key instead of riding along as a column.
+    # The sort's cost grows with its payload columns, so carry only what
+    # the species actually needs: tag is dropped when no tracer was ever
+    # tagged (all-zero column is permutation-invariant), and q is
+    # reconstructed from one scalar when the weight is uniform.
     cols = [sp.dx, sp.dy, sp.dz, sp.ux, sp.uy, sp.uz]
     if not sp.uniform_q:
         cols.append(sp.q)
     if sp.has_tags:
         cols.append(sp.tag)
     # unstable: intra-voxel lane order is physically meaningless (deposits
-    # are linear sums) and the unstable network is ~12% cheaper on-chip
+    # are linear sums)
     out = jax.lax.sort((key,) + tuple(cols), num_keys=1, is_stable=False)
-    key_s = out[0]
+    vox = out[0]
     dx, dy, dz, ux, uy, uz = out[1:7]
     rest = list(out[7:])
     q = sp.q if sp.uniform_q else rest.pop(0)
     tag = rest.pop(0) if sp.has_tags else sp.tag
 
-    if mapped:
-        from . import push_pallas as pk
-        vox = pk.vox_of_k(g, jnp.minimum(key_s, big - 1))
-    else:
-        vox = key_s
     live = jnp.sum(sp.alive).astype(jnp.int32)
     in_range = jnp.arange(sp.max_np, dtype=jnp.int32) < live
 
@@ -210,78 +192,3 @@ def sort_p(sp: SpeciesState, g: Grid | None = None) -> SpeciesState:
         ux=ux, uy=uy, uz=uz, q=q_out,
         tag=tag if not sp.has_tags else jnp.where(in_range, tag, 0),
     )
-
-
-def sort_p_packed_merge(psp, g: Grid, steps_since_sort: int = 1):
-    """O(n) re-sort for a PackedSpecies via the two-run merge kernel
-    (particles/sort_pallas.py — the TPU counting-sort analogue of
-    sort_p.c:16-102): only the lanes whose key changed since the last
-    sort (~2%/step) pay a bitonic; the sorted residual and the sorted
-    movers merge in one Pallas pass.  Falls back to the bitonic inside a
-    ``lax.cond`` whenever provisioning is defeated (first sort after
-    pack/restore, mover overflow, sparse/wide key spans) — never wrong.
-
-    ``steps_since_sort`` (static) provisions the mover buffer from the
-    same crossing-rate traffic model as the fix-up cap (NOTES_ROUND4):
-    unique movers/sort ~ 3% + 2%/step of drift.  In-kernel consistency
-    anomalies (0 in any valid run) are counted into ``nm`` so evidence
-    runs surface them exactly like dropped movers."""
-    import os
-
-    import jax
-
-    from . import push_pallas as pk
-    from . import sort_pallas as sps
-
-    n = psp.max_np
-    if n % sps.LANE:
-        # engine capacities are 1024-aligned (deck/api.define_species);
-        # unaligned direct callers get the bitonic
-        return sort_p_packed(psp, g)
-    nvk = pk.kernel_nv(g)
-    frac = os.environ.get("VPIC_TPU_MERGE_MCAP_FRAC")
-    frac = (float(frac) if frac
-            else min(0.5, 0.03 + 0.02 * steps_since_sort))
-    B = 512 if n % 512 == 0 else (256 if n % 256 == 0 else 128)
-    # residual window = 2B lanes: covers a B-rank residual range up to 50%
-    # local mover density (beyond that fit_ok falls back for that step);
-    # wider windows pay linearly in HBM traffic for the gathered windows
-    win_r = min(2 * B, n)
-    m_cap = int(min(n, max(16384, n * frac, B + sps.LANE)))
-    m_cap = -(-m_cap // sps.LANE) * sps.LANE
-    pk_new, key0, ctot, anomaly = sps.merge_sort_packed(
-        psp.pk, psp.np, psp.key0, psp.ctot, nvk,
-        m_cap=m_cap, B=B, W=512, win_r=win_r,
-        interpret=jax.default_backend() == "cpu")
-    return psp.replace(pk=pk_new, key0=key0, ctot=ctot,
-                       nm=psp.nm + anomaly)
-
-
-def sort_p_packed(psp, g: Grid):
-    """sort_p for a PackedSpecies: the key is row 7 (already in kernel
-    space — tiled when the grid is tiled), payload rows 0..5 (+6 when
-    weights vary).  Dead tail slots re-zero; ``np`` is invariant (packed
-    cycles cannot create or kill particles)."""
-    big = jnp.int32(2 ** 30)
-    p = psp.pk
-    n = psp.max_np
-    in_range = jnp.arange(n, dtype=jnp.int32) < psp.np
-    key = jnp.where(in_range, (p[7] + 0.5).astype(jnp.int32), big)
-
-    cols = [p[0], p[1], p[2], p[3], p[4], p[5]]
-    if not psp.uniform_q:
-        cols.append(p[6])
-    out = jax.lax.sort((key,) + tuple(cols), num_keys=1, is_stable=False)
-    key_s = out[0]
-    if psp.uniform_q:
-        qv = p[6][jnp.argmax(jnp.abs(p[6]))]
-        q_row = jnp.where(in_range, qv, 0.0)
-    else:
-        q_row = jnp.where(in_range, out[7], 0.0)
-    vox_row = jnp.where(in_range, key_s, 0).astype(jnp.float32)
-    new_pk = jnp.stack([out[1], out[2], out[3], out[4], out[5], out[6],
-                        q_row, vox_row], axis=0)
-    # this path does not maintain the merge-sort carry — invalidate the
-    # snapshot so a later sort_p_packed_merge re-establishes it
-    return psp.replace(pk=new_pk,
-                       key0=jnp.full((n,), -1, jnp.int32))

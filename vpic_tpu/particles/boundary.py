@@ -1,7 +1,7 @@
 """Guard-list processing: absorption, custom handlers, inter-shard particle
 migration, and continuation of unfinished streak walks.
 
-TPU re-design of ``boundary_p`` (src/species_advance/standard/boundary_p.c:
+Re-design of ``boundary_p`` (src/species_advance/standard/boundary_p.c:
 77-505): instead of variable-length mover/injector lists, each species
 carries per-particle boundary codes (``pc``); each comm round compacts ALL
 pending particles into one fixed-capacity buffer (the particle_injector_t

@@ -1,6 +1,6 @@
 """Particle push + charge-conserving current deposition.
 
-TPU re-design of the reference's hot loop:
+Re-design of the reference's hot loop:
 
 - ``advance_p`` (src/species_advance/standard/advance_p.cxx:68-183): gather
   18 interpolation coefficients, half-E kick, 6th-order-accurate Boris
@@ -18,8 +18,10 @@ Re-design decisions:
   buffer only (under the Courant limit a particle crosses at most one face
   per axis, so 4 segments suffice; extra rounds mirror num_comm_round).
 - Deposition accumulates into a dense (nv, 12) float32 accumulator with
-  XLA scatter-add (deterministic), replacing the per-pipeline accumulator
-  replicas + reduce_accumulators (sf_interface.h:60-77).
+  XLA scatter-add, replacing the per-pipeline accumulator replicas +
+  reduce_accumulators (sf_interface.h:60-77).  On a GPU the scatter is an
+  atomic add, so the summation order (and the last bits of the current)
+  can change from run to run.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ def deposit12_cols(q, sdx, sdy, sdz, smx, smy, smz):
     """Quadrant current contributions for a streak with half-displacement
     (sdx,sdy,sdz) and midpoint (smx,smy,smz): the ACCUMULATE_J macro
     (advance_p.cxx:140-158), all three axis permutations.  Returns a tuple
-    of 12 (n,) arrays (kept 1D to avoid TPU lane padding)."""
+    of 12 (n,) arrays."""
     one = jnp.float32(1.0)
     v5 = q * sdx * sdy * sdz * jnp.float32(ONE_THIRD)
     sd = (sdx, sdy, sdz)
@@ -99,16 +101,8 @@ def deposit12_cols(q, sdx, sdy, sdz, smx, smy, smz):
     return tuple(cols)
 
 
-def deposit12(q, sd, sm):
-    """(n,3)-input wrapper returning (n, 12) rows (for scatter paths)."""
-    cols = deposit12_cols(q, sd[:, 0], sd[:, 1], sd[:, 2],
-                          sm[:, 0], sm[:, 1], sm[:, 2])
-    return jnp.stack(cols, axis=-1)
-
-
 class WalkState(NamedTuple):
-    """Streak-walker state, all-1D SoA (no (n,3) stacking: TPU pads small
-    trailing dims to 128 lanes at fusion boundaries)."""
+    """Streak-walker state, all-1D SoA."""
     x: jax.Array; y: jax.Array; z: jax.Array        # cell-relative position
     vox: jax.Array                                  # voxel
     ux: jax.Array; uy: jax.Array; uz: jax.Array     # momentum
@@ -132,72 +126,9 @@ def compact_indices(mask, k: int, max_np: int):
     return jnp.where(valid, sel, max_np), n, valid
 
 
-def _compact_rows_gather(m2, k: int):
-    """Stable row-major indices of the first k set lanes of a 2D mask —
-    gather/rank-select form: XLA's scatter costs one update per INPUT
-    element, so the prefix-sum compaction over R*L lanes pays O(R*L); here
-    the only scatter is R row-start marks and everything else is k-sized
-    (a scan, one (k, L) row-gather, and a rank match).  Returns
-    (flat_sel, total, valid); invalid slots carry R*L."""
-    R, L = m2.shape
-    m2i = m2.astype(jnp.int32)
-    c = jnp.sum(m2i, axis=1)                          # (R,) per-row counts
-    B = jnp.cumsum(c) - c                             # exclusive bases
-    total = (B[-1] + c[-1]).astype(jnp.int32)
-    j = jnp.arange(k, dtype=jnp.int32)
-    # row of the j-th set lane: scatter each nonempty row's id at its base
-    # slot, then a running max fills the row's whole output range
-    start = jnp.where(c > 0, B, k)                    # empty rows dropped
-    mark = jnp.full((k,), -1, jnp.int32).at[
-        jnp.minimum(start, k)].max(jnp.arange(R, dtype=jnp.int32),
-                                   mode="drop")
-    r = jax.lax.associative_scan(jnp.maximum, mark)   # (k,) row per slot
-    r_safe = jnp.maximum(r, 0)
-    rank = j - B[r_safe]                              # in-row rank
-    pr = jnp.cumsum(m2i, axis=1) - 1                  # in-row prefix ranks
-    pr_rows = pr[r_safe]                              # (k, L) row gather
-    bits = m2[r_safe]                                 # (k, L)
-    hit = bits & (pr_rows == rank[:, None])           # exactly one per slot
-    pos = jnp.sum(jnp.where(hit,
-                            jnp.arange(L, dtype=jnp.int32)[None, :], 0),
-                  axis=1)
-    valid = j < total
-    sel = jnp.where(valid, r_safe * L + pos, R * L)
-    return sel, total, valid
-
-
-def compact_indices_hier(mask, k: int, max_np: int, row_cap: int = 2048):
-    """Two-level stable compaction for very sparse masks over very long
-    arrays: 128-lane rows containing any set lane are compacted first (a
-    prefix-sum pass over max_np/128 rows), the survivors' rows are
-    row-gathered, and the lane-level pass runs in gather/rank-select form
-    (:func:`_compact_rows_gather`) so no scatter ever touches the
-    row_cap*128 candidate lanes.  True lanes beyond ``row_cap`` rows are
-    dropped (callers count them against k).
-
-    Returns (sel, n_true, valid) like :func:`compact_indices`."""
-    n = mask.shape[0]
-    nr = (n + 127) // 128
-    if nr * 128 != n:
-        mask = jnp.concatenate(
-            [mask, jnp.zeros((nr * 128 - n,), mask.dtype)])
-    m2 = mask.reshape(nr, 128)
-    row_cap = min(row_cap, nr)
-    rsel, _, rvalid = compact_indices(jnp.any(m2, axis=1), row_cap, nr)
-    rsafe = jnp.where(rvalid, rsel, 0)
-    cand = m2[rsafe] & rvalid[:, None]              # (row_cap, 128)
-    csel, _, cvalid = _compact_rows_gather(cand, k)
-    csafe = jnp.where(cvalid, csel, 0)
-    sel = rsafe[csafe // 128] * 128 + csafe % 128
-    sel = jnp.where(cvalid & (sel < n), sel, max_np)
-    n_true = jnp.sum(mask).astype(jnp.int32)        # incl. dropped rows
-    return sel, n_true, cvalid & (sel < max_np)
-
-
 def _neighbor_lookup(vox, face, done, neighbor, g):
-    """neighbor[vox, face].  Row-gather of the 6-entry neighbor row (row
-    gathers amortize far better than per-element gathers on TPU), then a
-    lane select of the face."""
+    """neighbor[vox, face]: row-gather of the 6-entry neighbor row, then a
+    select of the face."""
     rows = neighbor[vox]                      # (n, 6) row gather
     face_oh = face[:, None] == jnp.arange(6, dtype=face.dtype)[None, :]
     return jnp.sum(jnp.where(face_oh, rows, 0), axis=1).astype(vox.dtype)
@@ -321,164 +252,16 @@ def streak_walk(st: WalkState, acc, neighbor, g, n_iter: int):
     return st._replace(pcode=pcode, active=jnp.zeros_like(st.active)), acc
 
 
-def _resume_enabled() -> bool:
-    """The resume-kernel fix-up is default-on for the fused path;
-    VPIC_TPU_DISABLE_RESUME=1 falls back to the XLA streak walker for
-    the whole fix-up buffer (A/B testing, debugging)."""
-    import os
-    return not os.environ.get("VPIC_TPU_DISABLE_RESUME")
-
-
-def _nm_debug(tag, **parts):
-    """VPIC_TPU_NM_DEBUG=1: print the mover-drop counter's components
-    from inside the jitted step (diagnosis aid for fix_cap sizing; the
-    counter itself is the advance.cxx:98-103 'Ignoring unprocessed
-    movers' analogue)."""
-    import os
-    if os.environ.get("VPIC_TPU_NM_DEBUG"):
-        keys = sorted(parts)
-        jax.debug.print(
-            "nm_debug " + tag + " " + " ".join(f"{k}={{{k}}}" for k in keys),
-            **parts)
-
-
-def _resume_fixup(st, tgt, acc, neighbor, g: Grid, lay: str,
-                  n_walk: int, table_t, params, strides, nvk: int,
-                  kernel_opts=None):
-    """Finish the walk of the K compacted fix-up lanes with a SECOND
-    fused-kernel pass (RESUME mode) instead of the XLA streak walker.
-
-    The fix-up buffer is sorted by (kernel-space) voxel and re-enters the
-    Pallas kernel mid-walk: segments + per-segment deposits run at kernel
-    rates; only its exports (exceptional crossings — domain faces,
-    reflect, migration —, window escapes, and third crossings) drop to
-    the XLA ``streak_walk`` at a K//8 cap.  This replaces the hundreds of
-    small XLA ops and the (nv, 12) scatter-adds that dominate 3D steps,
-    where EVERY z-crossing exports (the tiled/row-major z stride exceeds
-    the deposit window; see step.py fix_cap provisioning).
-
-    ``st`` is the post-``resolve_crossing`` state over the K-lane buffer;
-    ``st.active`` marks lanes with displacement left to walk.  Inactive
-    lanes (already stopped movers, finished lanes, invalid compaction
-    slots with q=0) ride the sort with a zeroed kernel rem (instant
-    finish, zero deposit, pure passthrough); their true pending rem and
-    pcode travel as sort payloads and are restored in the output.
-
-    Returns sorted-order per-lane results
-    ``(x, y, z, ux, uy, uz, q, vox, rx, ry, rz, pcode, tgt_s, acc,
-    n_drop)`` where ``vox`` is in normal voxel space, ``rx..rz`` follow
-    the mover convention (pending displacement where pcode != 0, else 0),
-    and ``tgt_s`` is the original-slot scatter target per sorted lane."""
-    from . import push_pallas as pk
-
-    K = st.x.shape[0]
-    K2 = min(K, max(1024, K // 4))
-
-    voxk = (st.vox if lay == "plain"
-            else pk.kvox_of(g, jnp.clip(st.vox, 0, g.nv - 1))
-            ).astype(jnp.int32)
-    walk = st.active
-    rxk = jnp.where(walk, st.rx, 0.0)
-    ryk = jnp.where(walk, st.ry, 0.0)
-    rzk = jnp.where(walk, st.rz, 0.0)
-    (voxs, xs, ys, zs, rxs, rys, rzs, qs, uxs, uys, uzs, tgt_s,
-     pcode_s, rxt, ryt, rzt) = jax.lax.sort(
-        [voxk, st.x, st.y, st.z, rxk, ryk, rzk, st.q,
-         st.ux, st.uy, st.uz, tgt.astype(jnp.int32),
-         st.pcode.astype(jnp.int32), st.rx, st.ry, st.rz],
-        num_keys=1)
-    walk_s = (rxs != 0) | (rys != 0) | (rzs != 0)
-
-    pstate11 = jnp.stack([xs, ys, zs, rxs, rys, rzs, qs,
-                          voxs.astype(jnp.float32), uxs, uys, uzs], axis=0)
-    ko = dict(kernel_opts or {})
-    # the K-lane buffer is SPARSE (its valid lanes spread over the whole
-    # grid), so the resume pass gets its own density-derived layout —
-    # with the main kernel's dense layout ~90% of resume lanes read
-    # out-of-window and cascade into the capped stage-3 tail (round-4 nm
-    # diagnosis)
-    ko.update(pk.pick_layout(nvk, K, ko.get("window", 512),
-                             ko.get("pre", 256)))
-    acc_t, pout2, in_win2 = pk.fused_push_walk(
-        voxs, pstate11, table_t, params, strides, nvk,
-        n_walk=n_walk, resume=True,
-        wraps=pk.kernel_wraps(g), mod=pk.kernel_mod(g), **ko)
-    acc = acc + unmap_acc(acc_t, g)
-
-    # ---- the small XLA tail: kernel exports + window escapees ----
-    expt2 = ((pout2[pk.PEXPT] > 0.5) | ~in_win2) & walk_s
-    sel2, n2, valid2 = compact_indices(expt2, K2, K)
-    safe2 = jnp.where(valid2, sel2, 0)
-    pf2 = pout2[:, safe2]            # ONE (16, K2) column gather
-    ps2 = pstate11[:, safe2]         # sorted inputs (u, q) in one gather
-    kv2 = (pf2[pk.PVOX] + 0.5).astype(jnp.int32)
-    vox2 = (kv2 if lay == "plain"
-            else pk.vox_of_k(g, jnp.clip(kv2, 0, nvk - 1)))
-    st3 = WalkState(
-        x=pf2[pk.PX], y=pf2[pk.PY], z=pf2[pk.PZ],
-        vox=vox2,
-        ux=ps2[8], uy=ps2[9], uz=ps2[10],
-        rx=pf2[pk.PRX], ry=pf2[pk.PRY], rz=pf2[pk.PRZ],
-        q=jnp.where(valid2, ps2[6], 0.0),
-        pcode=jnp.zeros((K2,), jnp.int32),
-        active=valid2,
-    )
-    stype3 = (pf2[pk.PTYPE] + 0.5).astype(jnp.int32)
-    dir3 = pf2[pk.PDIR]
-    pos3 = (st3.x, st3.y, st3.z)
-    rem3 = (st3.rx, st3.ry, st3.rz)
-    st3 = resolve_crossing(st3, pos3, rem3, (st3.ux, st3.uy, st3.uz),
-                           pos3, rem3, stype3, (dir3, dir3, dir3),
-                           neighbor, g)
-    walk3 = valid2 & (st3.pcode == 0) & (
-        (st3.rx != 0) | (st3.ry != 0) | (st3.rz != 0))
-    st3 = st3._replace(active=walk3)
-    st3, acc = streak_walk(st3, acc, neighbor, g, n_walk)
-    pend3 = st3.pcode != 0
-
-    # ---- merge: pout2 passthrough, true-rem restore, stage-3 override --
-    # one stacked (9, K) scatter for the float quantities
-    tgt2 = jnp.where(valid2, sel2, K)
-    base = jnp.stack([
-        pout2[pk.PX], pout2[pk.PY], pout2[pk.PZ], uxs, uys, uzs,
-        jnp.where(walk_s, 0.0, rxt), jnp.where(walk_s, 0.0, ryt),
-        jnp.where(walk_s, 0.0, rzt)], axis=0)               # (9, K)
-    vals = jnp.stack([
-        st3.x, st3.y, st3.z, st3.ux, st3.uy, st3.uz,
-        jnp.where(pend3, st3.rx, 0.0), jnp.where(pend3, st3.ry, 0.0),
-        jnp.where(pend3, st3.rz, 0.0)], axis=0)             # (9, K2)
-    F = base.at[:, tgt2].set(vals, mode="drop")
-    x_f, y_f, z_f = F[0], F[1], F[2]
-    ux_f, uy_f, uz_f = F[3], F[4], F[5]
-    rx_f, ry_f, rz_f = F[6], F[7], F[8]
-    kvK = (pout2[pk.PVOX] + 0.5).astype(jnp.int32)
-    vox_f = (kvK if lay == "plain"
-             else pk.vox_of_k(g, jnp.clip(kvK, 0, nvk - 1)))
-    vox_f = vox_f.at[tgt2].set(st3.vox, mode="drop")
-    pcode_f = pcode_s.at[tgt2].set(st3.pcode, mode="drop")
-    # exports beyond the K2 cap keep their frozen kernel state; their
-    # pending displacement is dropped and counted (advance.cxx:98-103)
-    n_drop = jnp.maximum(n2 - jnp.sum(valid2).astype(jnp.int32), 0)
-    _nm_debug("resume", n2=n2, K2=jnp.int32(K2),
-              exhausted=jnp.sum(pend3 & (st3.pcode == PC_EXHAUSTED)))
-    return (x_f, y_f, z_f, ux_f, uy_f, uz_f, qs, vox_f,
-            rx_f, ry_f, rz_f, pcode_f, tgt_s, acc, n_drop)
-
-
 def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
               max_nm: int | None = None, n_walk: int = 4,
-              sorted_deposit: bool = False, fused: bool = False,
-              interp_t=None, kernel_opts=None, fix_cap: int | None = None,
               count_pending: bool = True):
     """One particle push for a whole species.
 
     Segment 1 of the streak walk runs vectorized over ALL particles (for
     in-bounds particles — the vast majority — it IS the full streak), and
-    its deposition goes through the sorted one-hot-matmul Pallas kernel
-    when ``sorted_deposit`` (requires particles kept sorted by voxel, see
-    deposit_pallas.py) or XLA scatter-add otherwise.  Cell crossers finish
-    in a fixed-capacity compacted mover buffer (particle_mover_t analogue);
-    results merge back by gather (cheaper than scatter on TPU).
+    its deposition is one scatter-add into the (nv, 12) accumulator.  Cell
+    crossers finish in a fixed-capacity compacted mover buffer
+    (particle_mover_t analogue); results merge back by one row gather.
 
     ``sp.nm`` ACCUMULATES dropped movers across steps (the per-step
     "Ignoring %i unprocessed movers" of advance.cxx:98-103, summed so a
@@ -502,12 +285,6 @@ def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
 
     alive = sp.alive
     vox = jnp.where(alive, sp.i, 0)
-
-    if fused:
-        return _advance_p_fused(sp, interp, acc, neighbor, g, alive, vox,
-                                n_walk=n_walk, table_t=interp_t,
-                                kernel_opts=kernel_opts, fix_cap=fix_cap,
-                                count_pending=count_pending)
 
     ip = interp[vox]
 
@@ -537,13 +314,8 @@ def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
         active=alive,
     )
     st, dep_vox, contrib = walk_segment(st, neighbor, g)
-    if sorted_deposit:
-        from .deposit_pallas import deposit_sorted_into
-        acc, _dropped = deposit_sorted_into(acc, dep_vox, contrib, alive,
-                                            g.nv)
-    else:
-        acc = acc.at[dep_vox].add(jnp.stack(contrib, axis=-1),
-                                  mode="promise_in_bounds")
+    acc = acc.at[dep_vox].add(jnp.stack(contrib, axis=-1),
+                              mode="promise_in_bounds")
 
     return _finish_after_segment1(sp, st, acc, neighbor, g, alive,
                                   max_nm, n_walk, count_pending)
@@ -669,461 +441,3 @@ def energy_p(sp: SpeciesState, interp, g: Grid):
 
 def finish_energy_p(sp: SpeciesState, g: Grid, global_en):
     return (g.cvac * g.cvac / sp.q_m).astype(jnp.float64) * global_en
-
-
-def _push_math(ip, dx, dy, dz, ux0, uy0, uz0, qdt_2mc, cdt):
-    """Boris push + normalized half-displacement (advance_p.cxx:74-116)."""
-    one = jnp.float32(1.0)
-    ex, ey, ez, cbx, cby, cbz = interpolate_fields(ip, dx, dy, dz)
-    hax, hay, haz = qdt_2mc * ex, qdt_2mc * ey, qdt_2mc * ez
-    ux = ux0 + hax
-    uy = uy0 + hay
-    uz = uz0 + haz
-    v0 = qdt_2mc / jnp.sqrt(one + (ux * ux + (uy * uy + uz * uz)))
-    ux, uy, uz = boris_rotation(ux, uy, uz, cbx, cby, cbz, v0)
-    ux = ux + hax
-    uy = uy + hay
-    uz = uz + haz
-    v0 = one / jnp.sqrt(one + (ux * ux + (uy * uy + uz * uz)))
-    return (ux, uy, uz,
-            (ux * cdt[0]) * v0, (uy * cdt[1]) * v0, (uz * cdt[2]) * v0)
-
-
-def tile_interp(interp, g: Grid):
-    """(18, nvt) tiled transposed interpolator via bulk pad/transpose/
-    reshape — no gather (an nvt-row gather cost ~18 ms/step at 512^2)."""
-    from . import push_pallas as pk
-
-    tx, ty = pk.tile_shape(g)
-    if ty == 1:
-        xt = (g.nxg + pk.TILE - 1) // pk.TILE
-        X = xt * pk.TILE
-        j = g.nzg * g.nyg
-        i3 = interp.reshape(j, g.nxg, 18)
-        i3 = jnp.pad(i3, ((0, 0), (0, X - g.nxg), (0, 0)))
-        # tiled index t = xtile*(j*128) + j_idx*128 + xoff
-        return i3.reshape(j, xt, pk.TILE, 18).transpose(
-            3, 1, 0, 2).reshape(18, xt * j * pk.TILE)
-    # xy tiling: t = ((yt*ntx + xt)*nzg + z)*128 + yo*tx + xo
-    ntx = (g.nxg + tx - 1) // tx
-    nty = (g.nyg + ty - 1) // ty
-    i4 = interp.reshape(g.nzg, g.nyg, g.nxg, 18)
-    i4 = jnp.pad(i4, ((0, 0), (0, nty * ty - g.nyg),
-                      (0, ntx * tx - g.nxg), (0, 0)))
-    return i4.reshape(g.nzg, nty, ty, ntx, tx, 18).transpose(
-        5, 1, 3, 0, 2, 4).reshape(18, nty * ntx * g.nzg * pk.TILE)
-
-
-def untile_acc(acc_t, g: Grid):
-    """(12, nvt_pad) tiled accumulator -> (nv, 12) row-major, bulk ops."""
-    from . import push_pallas as pk
-
-    tx, ty = pk.tile_shape(g)
-    if ty == 1:
-        xt = (g.nxg + pk.TILE - 1) // pk.TILE
-        X = xt * pk.TILE
-        j = g.nzg * g.nyg
-        a = acc_t[:, :xt * j * pk.TILE].reshape(12, xt, j, pk.TILE)
-        a = a.transpose(0, 2, 1, 3).reshape(12, j, X)[:, :, :g.nxg]
-        return a.reshape(12, g.nv).T
-    ntx = (g.nxg + tx - 1) // tx
-    nty = (g.nyg + ty - 1) // ty
-    a = acc_t[:, :nty * ntx * g.nzg * pk.TILE].reshape(
-        12, nty, ntx, g.nzg, ty, tx)
-    a = a.transpose(0, 3, 1, 4, 2, 5).reshape(
-        12, g.nzg, nty * ty, ntx * tx)[:, :, :g.nyg, :g.nxg]
-    return a.reshape(12, g.nv).T
-
-
-def map_interp(interp, g: Grid):
-    """(18, nvk) transposed interpolator columns in this grid's kernel
-    layout (push_pallas.kernel_layout) — pure slicing/reshapes, no
-    gather."""
-    from . import push_pallas as pk
-
-    lay = pk.kernel_layout(g)
-    if lay == "tiled":
-        return tile_interp(interp, g)
-    if lay == "interior":
-        # ghost-free circular layout: interior voxels of the single 2D
-        # z-plane in row-major (x fastest) order
-        nx, ny = g.nxg - 2, g.nyg - 2
-        i4 = interp.reshape(g.nzg, g.nyg, g.nxg, 18)
-        return i4[1, 1:1 + ny, 1:1 + nx].reshape(nx * ny, 18).T
-    return interp.T
-
-
-def unmap_acc(acc_t, g: Grid):
-    """(12, nvk_pad) kernel-layout accumulator -> (nv, 12) row-major."""
-    from . import push_pallas as pk
-
-    lay = pk.kernel_layout(g)
-    if lay == "tiled":
-        return untile_acc(acc_t, g)
-    if lay == "interior":
-        nx, ny = g.nxg - 2, g.nyg - 2
-        a = acc_t[:, :nx * ny].reshape(12, 1, ny, nx)
-        a = jnp.pad(a, ((0, 0), (1, 1), (1, 1), (1, 1)))
-        return a.reshape(12, g.nv).T
-    return acc_t[:, :g.nv].T
-
-
-def make_interp_t(interp, g: Grid, neighbor=None, exc_t=None):
-    """Lane-padded (N_TABLE, nv_pad) gather table for the fused kernel:
-    18 transposed interpolator rows plus the 14 static exception/wrap
-    rows (``push_pallas.exception_rows``: exc bits, 6 face-shifted exc
-    copies, wrap bits, 6 face-shifted wrap copies), all in this grid's
-    kernel layout — species-independent, built once per step.
-
-    ``exc_t`` is the STATIC (14, nvk) exception-row stack from
-    GridArrays (computed once at init); when absent it is rebuilt from
-    ``neighbor`` (slow path kept for direct advance_p calls in tests)."""
-    from . import push_pallas as pk
-
-    nvk = pk.kernel_nv(g)
-    cols = map_interp(interp, g)
-    if exc_t is None:
-        exc_t = pk.exception_rows(neighbor, g)
-    nv_pad = pk._round_up(nvk + 1, pk.LANE)
-    t = jnp.zeros((pk.N_TABLE, nv_pad), jnp.float32)
-    t = t.at[:18, :nvk].set(cols)
-    t = t.at[pk.EXC_ROW:pk.EXC_ROW + pk.N_EXC_ROWS, :nvk].set(exc_t)
-    return t
-
-
-def _advance_p_fused(sp: SpeciesState, interp, acc, neighbor, g: Grid,
-                     alive, vox, n_walk: int = 4, table_t=None,
-                     fix_cap: int | None = None, kernel_opts=None,
-                     count_pending: bool = True):
-    """The fused Pallas push: the kernel finishes the full streak walk for
-    in-window lanes with interior crossings (push_pallas.py); only
-    exported lanes (domain-boundary faces, window escapes, walker
-    exhaustion) and out-of-window lanes (sort drift) go through a small
-    compacted XLA fix-up: resolve the pending crossing with the real
-    neighbor table, finish the walk, scatter back."""
-    from . import push_pallas as pk
-
-    max_np = sp.max_np
-    if fix_cap is None:
-        fix_cap = max(8192, max_np // 64)
-    # compact_indices_hier emits at most row_cap*128 = 262144 lanes; a
-    # larger K would mismatch its output length at trace time
-    K = min(fix_cap, max_np, 2048 * 128)
-
-    qdt_2mc = (0.5 * sp.q_m * g.dt / g.cvac).astype(jnp.float32)
-    cdt = (jnp.float32(g.cvac * g.dt * g.rdx),
-           jnp.float32(g.cvac * g.dt * g.rdy),
-           jnp.float32(g.cvac * g.dt * g.rdz))
-
-    pstate_t = jnp.stack(
-        [sp.dx, sp.dy, sp.dz, sp.ux, sp.uy, sp.uz,
-         jnp.where(alive, sp.q, 0.0)], axis=0)
-    if table_t is None:
-        table_t = make_interp_t(interp, g, neighbor)
-    params = jnp.stack([qdt_2mc, *cdt]).astype(jnp.float32)
-
-    # the kernel runs in the grid's kernel layout (push_pallas
-    # kernel_layout: ghost-free CIRCULAR interior for 2D — periodic
-    # wraps become ordinary window-local strides —, tiled-xy for 3D,
-    # plain otherwise); conversions in/out are pure arithmetic
-    lay = pk.kernel_layout(g)
-    nvk = pk.kernel_nv(g)
-    vox_k = vox if lay == "plain" else pk.kvox_of(g, vox)
-    strides = pk.kernel_strides(g)
-    wraps = pk.kernel_wraps(g)
-    mod = pk.kernel_mod(g)
-
-    ko = dict(kernel_opts or {})
-    if "window" not in ko:
-        ko["window"], ko["pre"] = pk.kernel_window(g)
-    if "block" not in ko:
-        # sparse decks (few lanes/voxel) need wider windows or smaller
-        # blocks so a sorted block's span stays coverable (pick_layout)
-        ko.update(pk.pick_layout(nvk, max_np, ko["window"], ko["pre"]))
-    acc_t, pout, in_win = pk.fused_push_walk(
-        vox_k, pstate_t, table_t, params, strides, nvk, n_walk=n_walk,
-        wraps=wraps, mod=mod, **ko)
-    acc = acc + unmap_acc(acc_t, g)
-
-    expt = pout[pk.PEXPT] > 0.5
-    fix = alive & (expt | ~in_win)
-
-    # kernel-finished lanes (the overwhelming majority) are final.  Dead
-    # slots take the kernel passthrough values too (q=0/vox=0 zombies walk
-    # nowhere; every injection path overwrites all columns) — masking them
-    # with where(alive, ...) would cost one full-column select per field.
-    dx, dy, dz = pout[pk.PX], pout[pk.PY], pout[pk.PZ]
-    uxo, uyo, uzo = pout[pk.PUX], pout[pk.PUY], pout[pk.PUZ]
-    kvox = (pout[pk.PVOX] + 0.5).astype(jnp.int32)
-    if lay != "plain":
-        kvox = pk.vox_of_k(g, jnp.clip(kvox, 0, nvk - 1))
-    # out-of-window lanes carry their INPUT voxel through PVOX (kernel
-    # passthrough), so kvox is valid for every live lane; dead slots keep
-    # their original voxel (zombies carry i < 0, which `alive` relies on)
-    vox_o = jnp.where(alive, kvox, sp.i)
-
-    # ---- compacted fix-up buffer ----
-    # The kernel passes out-of-window lanes straight through, so the pout
-    # rows already hold the ORIGINAL pre-push state for redo lanes and the
-    # frozen mid-walk state for exports: ONE compacted column gather of
-    # the whole (16, np) pout block covers every quantity (13 separate
-    # row gathers cost ~0.25 ms EACH at K ~ 88k on a v5e).
-    sel, n_fix, valid = compact_indices_hier(fix, K, max_np)
-    safe = jnp.where(valid, sel, 0)
-    redo = valid & ~in_win[safe]          # never pushed (sort drift)
-
-    pf = pout[:, safe]                                      # (16, K)
-    px_f, py_f, pz_f = pf[pk.PX], pf[pk.PY], pf[pk.PZ]
-    ux_f, uy_f, uz_f = pf[pk.PUX], pf[pk.PUY], pf[pk.PUZ]
-    # redo -> original voxel, export -> kernel voxel (PVOX passthrough
-    # covers both); the layout unmapping runs on K lanes, not max_np
-    kvox_f = (pf[pk.PVOX] + 0.5).astype(jnp.int32)
-    vox_f = (kvox_f if lay == "plain"
-             else pk.vox_of_k(g, jnp.clip(kvox_f, 0, nvk - 1)))
-
-    # out-of-window lanes redo the full push from their original state
-    ipr = interp[jnp.where(redo, jnp.maximum(vox_f, 0), 0)]
-    rux, ruy, ruz, rrx, rry, rrz = _push_math(
-        ipr, px_f, py_f, pz_f, ux_f, uy_f, uz_f, qdt_2mc, cdt)
-
-    def mix(r, b):
-        return jnp.where(redo, r, b)
-
-    st_in = WalkState(
-        x=px_f, y=py_f, z=pz_f,
-        vox=vox_f,
-        ux=mix(rux, ux_f),
-        uy=mix(ruy, uy_f),
-        uz=mix(ruz, uz_f),
-        rx=mix(rrx, pf[pk.PRX]),
-        ry=mix(rry, pf[pk.PRY]),
-        rz=mix(rrz, pf[pk.PRZ]),
-        q=jnp.where(valid, pf[pk.PQ], 0.0),
-        pcode=jnp.zeros((K,), jnp.int32),
-        active=valid,
-    )
-    stype_b = jnp.where(redo, 3, (pf[pk.PTYPE] + 0.5).astype(jnp.int32))
-    dir_b = jnp.where(redo, 0.0, pf[pk.PDIR])
-    pos_b = (st_in.x, st_in.y, st_in.z)
-    rem_b = (st_in.rx, st_in.ry, st_in.rz)
-    st = resolve_crossing(st_in, pos_b, rem_b,
-                          (st_in.ux, st_in.uy, st_in.uz), pos_b, rem_b,
-                          stype_b, (dir_b, dir_b, dir_b), neighbor, g)
-    # anything with pending displacement and no boundary code keeps walking
-    # (covers redo lanes, exhausted exports, and freshly crossed lanes; the
-    # kernel zeroes rem exactly for finished lanes)
-    walk = valid & (st.pcode == 0) & (
-        (st.rx != 0) | (st.ry != 0) | (st.rz != 0))
-    st = st._replace(active=walk)
-    tgt = jnp.where(valid, sel, max_np)
-    zf = jnp.zeros((max_np,), jnp.float32)
-
-    if _resume_enabled():
-        # second fused-kernel pass finishes the walk; only its exports
-        # take the XLA streak walker (see _resume_fixup)
-        (x_f, y_f, z_f, uxf, uyf, uzf, _, vox_fo,
-         rx_f, ry_f, rz_f, pcode_f, tgt_w, acc, n_drop) = _resume_fixup(
-            st, tgt, acc, neighbor, g, lay, n_walk, table_t,
-            params, strides, nvk, kernel_opts=ko)
-    else:
-        st, acc = streak_walk(st, acc, neighbor, g, n_walk)
-        pend = st.pcode != 0
-        x_f, y_f, z_f = st.x, st.y, st.z
-        uxf, uyf, uzf = st.ux, st.uy, st.uz
-        vox_fo, pcode_f, tgt_w = st.vox, st.pcode, tgt
-        rx_f = jnp.where(pend, st.rx, 0.0)
-        ry_f = jnp.where(pend, st.ry, 0.0)
-        rz_f = jnp.where(pend, st.rz, 0.0)
-        n_drop = jnp.int32(0)
-
-    # ---- scatter the fix-up results back ----
-    def put(full, vals):
-        return full.at[tgt_w].set(vals, mode="drop")
-
-    dx, dy, dz = put(dx, x_f), put(dy, y_f), put(dz, z_f)
-    uxo, uyo, uzo = put(uxo, uxf), put(uyo, uyf), put(uzo, uzf)
-    vox_o = put(vox_o, vox_fo)
-    pc = jnp.zeros((max_np,), jnp.int32).at[tgt_w].set(pcode_f,
-                                                       mode="drop")
-    mdx = zf.at[tgt_w].set(rx_f, mode="drop")
-    mdy = zf.at[tgt_w].set(ry_f, mode="drop")
-    mdz = zf.at[tgt_w].set(rz_f, mode="drop")
-
-    # fix-lanes beyond capacity keep their frozen kernel state; their
-    # remaining displacement is dropped and counted, mirroring the
-    # "Ignoring %i unprocessed movers" semantics (advance.cxx:98-103)
-    _nm_debug("fused", pcode=jnp.sum(pcode_f != 0), drop=n_drop,
-              n_fix=n_fix, n_valid=jnp.sum(valid))
-    drops = n_drop + jnp.maximum(n_fix - jnp.sum(valid).astype(jnp.int32), 0)
-    nm = sp.nm + drops + (jnp.sum(pcode_f != 0).astype(jnp.int32)
-                          if count_pending else 0)
-
-    sp = sp.replace(dx=dx, dy=dy, dz=dz, i=vox_o, ux=uxo, uy=uyo, uz=uzo,
-                    mdx=mdx, mdy=mdy, mdz=mdz, pc=pc, nm=nm)
-    return sp, acc
-
-
-# ---------------------------------------------------------------------------
-# Packed-cycle fast path: species carried in the kernel's (8, n) row layout
-# ---------------------------------------------------------------------------
-
-
-def pack_species(sp: SpeciesState, g: Grid):
-    """SpeciesState -> PackedSpecies (the fused kernel's (8, max_np) row
-    layout, voxels in kernel space).  Requires a zombie-free species in a
-    configuration where nothing can create/kill/tag particles (see
-    core.types.PackedSpecies)."""
-    from ..core.types import PackedSpecies
-    from . import push_pallas as pk
-
-    alive = sp.alive
-    vox = jnp.where(alive, sp.i, 0)
-    lay = pk.kernel_layout(g)
-    if lay != "plain":
-        vox = pk.kvox_of(g, vox)
-    rows = jnp.stack([sp.dx, sp.dy, sp.dz, sp.ux, sp.uy, sp.uz,
-                      jnp.where(alive, sp.q, 0.0),
-                      vox.astype(jnp.float32)], axis=0)
-    nvk = pk.kernel_nv(g)
-    return PackedSpecies(
-        name=sp.name, sid=sp.sid, max_np=sp.max_np,
-        sort_interval=sp.sort_interval, uniform_q=sp.uniform_q,
-        tiled=(lay != "plain"), q_m=sp.q_m, np=sp.np, nm=sp.nm, pk=rows,
-        # merge re-sort carry: no snapshot yet (key0[0] < 0) — the first
-        # sort runs the bitonic and establishes key0/ctot
-        key0=jnp.full((sp.max_np,), -1, jnp.int32),
-        ctot=jnp.zeros((nvk + 3,), jnp.int32),
-        # window-start carry: no snapshot yet (wstart[0] < 0) — the
-        # first packed push uses the robust per-step placement; the
-        # first sort establishes the exact starts
-        wstart=jnp.full((pk.n_wstart(g, sp.max_np),), -1, jnp.int32))
-
-
-def unpack_species(psp, g: Grid) -> SpeciesState:
-    """PackedSpecies -> SpeciesState.  Mover columns come back cleared
-    (packed cycles have no boundary rounds; leftovers were dropped and
-    counted in ``nm``, the advance.cxx:98-103 semantics)."""
-    from . import push_pallas as pk
-
-    p = psp.pk
-    vox = (p[7] + 0.5).astype(jnp.int32)
-    if pk.kernel_layout(g) != "plain":
-        vox = pk.vox_of_k(g, vox)
-    in_range = jnp.arange(psp.max_np, dtype=jnp.int32) < psp.np
-    zf = jnp.zeros((psp.max_np,), jnp.float32)
-    zi = jnp.zeros((psp.max_np,), jnp.int32)
-    return SpeciesState(
-        name=psp.name, sid=psp.sid, max_np=psp.max_np,
-        sort_interval=psp.sort_interval, q_m=psp.q_m,
-        np=psp.np, nm=psp.nm,
-        dx=p[0], dy=p[1], dz=p[2],
-        i=jnp.where(in_range, vox, 0),
-        ux=p[3], uy=p[4], uz=p[5], q=p[6],
-        mdx=zf, mdy=zf, mdz=zf, pc=zi, tag=zi,
-        has_tags=False, uniform_q=psp.uniform_q)
-
-
-def advance_p_packed(psp, interp, acc, neighbor, g: Grid,
-                     n_walk: int = 4, table_t=None,
-                     fix_cap: int | None = None, kernel_opts=None):
-    """advance_p for a PackedSpecies: the kernel reads ``psp.pk``
-    directly and ``pout[0:8]`` (a tile-aligned slice) becomes the next
-    state — no column extraction, no input concat; the fix-up scatters
-    once into the (8, n) block instead of per column."""
-    from . import push_pallas as pk
-
-    max_np = psp.max_np
-    if fix_cap is None:
-        fix_cap = max(8192, max_np // 64)
-    K = min(fix_cap, max_np, 2048 * 128)
-
-    qdt_2mc = (0.5 * psp.q_m * g.dt / g.cvac).astype(jnp.float32)
-    cdt = (jnp.float32(g.cvac * g.dt * g.rdx),
-           jnp.float32(g.cvac * g.dt * g.rdy),
-           jnp.float32(g.cvac * g.dt * g.rdz))
-    params = jnp.stack([qdt_2mc, *cdt]).astype(jnp.float32)
-
-    lay = pk.kernel_layout(g)
-    nvk = pk.kernel_nv(g)
-    strides = pk.kernel_strides(g)
-
-    ko = dict(kernel_opts or {})
-    if "window" not in ko:
-        ko["window"], ko["pre"] = pk.kernel_window(g)
-    if "block" not in ko:
-        ko.update(pk.pick_layout(nvk, max_np, ko["window"], ko["pre"]))
-    vox_k = (psp.pk[7] + 0.5).astype(jnp.int32)
-    acc_t, pout, in_win = pk.fused_push_walk(
-        vox_k, psp.pk, table_t, params, strides, nvk, n_walk=n_walk,
-        wraps=pk.kernel_wraps(g), mod=pk.kernel_mod(g), **ko)
-    acc = acc + unmap_acc(acc_t, g)
-
-    alive = jnp.arange(max_np, dtype=jnp.int32) < psp.np
-    expt = pout[pk.PEXPT] > 0.5
-    fix = alive & (expt | ~in_win)
-
-    sel, n_fix, valid = compact_indices_hier(fix, K, max_np)
-    safe = jnp.where(valid, sel, 0)
-    redo = valid & ~in_win[safe]
-
-    pf = pout[:, safe]     # ONE (16, K) column gather for every quantity
-    px_f, py_f, pz_f = pf[pk.PX], pf[pk.PY], pf[pk.PZ]
-    ux_f, uy_f, uz_f = pf[pk.PUX], pf[pk.PUY], pf[pk.PUZ]
-    q_f = jnp.where(valid, pf[pk.PQ], 0.0)
-    kvox_f = (pf[pk.PVOX] + 0.5).astype(jnp.int32)
-    vox_f = (kvox_f if lay == "plain"          # unmapped for the walk
-             else pk.vox_of_k(g, jnp.clip(kvox_f, 0, nvk - 1)))
-
-    ipr = interp[jnp.where(redo, jnp.maximum(vox_f, 0), 0)]
-    rux, ruy, ruz, rrx, rry, rrz = _push_math(
-        ipr, px_f, py_f, pz_f, ux_f, uy_f, uz_f, qdt_2mc, cdt)
-
-    def mix(r, b):
-        return jnp.where(redo, r, b)
-
-    st_in = WalkState(
-        x=px_f, y=py_f, z=pz_f, vox=vox_f,
-        ux=mix(rux, ux_f), uy=mix(ruy, uy_f), uz=mix(ruz, uz_f),
-        rx=mix(rrx, pf[pk.PRX]),
-        ry=mix(rry, pf[pk.PRY]),
-        rz=mix(rrz, pf[pk.PRZ]),
-        q=q_f, pcode=jnp.zeros((K,), jnp.int32), active=valid)
-    stype_b = jnp.where(redo, 3, (pf[pk.PTYPE] + 0.5).astype(jnp.int32))
-    dir_b = jnp.where(redo, 0.0, pf[pk.PDIR])
-    pos_b = (st_in.x, st_in.y, st_in.z)
-    rem_b = (st_in.rx, st_in.ry, st_in.rz)
-    st = resolve_crossing(st_in, pos_b, rem_b,
-                          (st_in.ux, st_in.uy, st_in.uz), pos_b, rem_b,
-                          stype_b, (dir_b, dir_b, dir_b), neighbor, g)
-    walk = valid & (st.pcode == 0) & (
-        (st.rx != 0) | (st.ry != 0) | (st.rz != 0))
-    st = st._replace(active=walk)
-    tgt = jnp.where(valid, sel, max_np)
-
-    if _resume_enabled():
-        (x_f, y_f, z_f, uxf, uyf, uzf, q_s, vox_fo,
-         _, _, _, pcode_f, tgt_w, acc, n_drop) = _resume_fixup(
-            st, tgt, acc, neighbor, g, lay, n_walk, table_t,
-            params, strides, nvk, kernel_opts=ko)
-    else:
-        st, acc = streak_walk(st, acc, neighbor, g, n_walk)
-        x_f, y_f, z_f = st.x, st.y, st.z
-        uxf, uyf, uzf = st.ux, st.uy, st.uz
-        vox_fo, pcode_f, tgt_w, q_s = st.vox, st.pcode, tgt, q_f
-        n_drop = jnp.int32(0)
-
-    # ---- one (8, K) scatter back into the state block ----
-    voxk_new = (vox_fo if lay == "plain"
-                else pk.kvox_of(g, jnp.maximum(vox_fo, 0))
-                ).astype(jnp.float32)
-    upd = jnp.stack([x_f, y_f, z_f, uxf, uyf, uzf,
-                     q_s, voxk_new], axis=0)          # (8, K)
-    new_pk = pout[0:8].at[:, tgt_w].set(upd, mode="drop")
-
-    # packed cycles have no boundary rounds: pending movers are dropped
-    # and counted (advance.cxx:98-103 semantics)
-    _nm_debug("packed", pcode=jnp.sum(pcode_f != 0), drop=n_drop,
-              n_fix=n_fix, n_valid=jnp.sum(valid))
-    nm = (jnp.sum(pcode_f != 0).astype(jnp.int32) + n_drop
-          + jnp.maximum(n_fix - jnp.sum(valid).astype(jnp.int32), 0))
-    return psp.replace(pk=new_pk, nm=psp.nm + nm), acc
